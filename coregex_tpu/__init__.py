@@ -1,7 +1,7 @@
-"""coregex_tpu — a TPU-native regex matching framework.
+"""coregex_tpu — a regex matching framework for accelerators.
 
 A from-scratch re-design of the capabilities of coregx/coregex (a Go regex
-meta-engine) for TPU hardware: patterns compile ahead of time into dense
+meta-engine) for data-parallel hardware (a GPU): patterns compile ahead of time into dense
 artifacts (DFA transition tables over byte classes, NFA bitset masks, literal
 prefilter tables) and corpora are scanned with data-parallel JAX/Pallas
 kernels, sharded across device meshes for scale-out.

@@ -3,7 +3,7 @@
 The reference counts matches by repeatedly running its leftmost-first search
 and restarting at each match end (meta/findall.go:297-376 Count over the
 same loop as FindAllIndicesStreaming).  That loop is branchy and sequential;
-on TPU we instead observe that the *entire* restart process is itself a
+on the device we instead observe that the *entire* restart process is itself a
 deterministic finite-state transduction of the input:
 
   product state = a chain of "search frames", each a state of the

@@ -1,9 +1,9 @@
-"""Dense DFA artifact — the central compiled object of the TPU build.
+"""Dense DFA artifact — the central compiled object of the device build.
 
 Where the reference determinizes lazily at search time into a flat
 transition table (dfa/lazy/lazy.go:387-435 hot loop over
 flatTrans[sid*stride+class]), we determinize *eagerly* at pattern-compile
-time into dense numpy arrays that upload to TPU once and are scanned by
+time into dense numpy arrays that upload to the device once and are scanned by
 data-parallel kernels:
 
   delta     [S, C] int32   next-state (state 0 == DEAD)
@@ -87,7 +87,7 @@ class DenseDFA:
                       start_state: Optional[int] = None,
                       sot: bool = True, eoi_ctx: int = CTX_SOT) -> np.ndarray:
         """Host (numpy) sequential scan: return bool mask of length n+1 where
-        mask[p] == a match ends at offset p.  The scalar oracle for the TPU
+        mask[p] == a match ends at offset p.  The scalar oracle for the device
         kernels (cf. SURVEY.md §4 implication (b)).  `eoi_ctx` describes what
         lies beyond the window's far edge (CTX_SOT == true end of text)."""
         n = len(data)

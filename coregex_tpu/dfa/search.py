@@ -1,6 +1,6 @@
 """Bidirectional DFA search primitives — host (numpy) reference semantics.
 
-These define the exact algorithms the TPU kernels mirror (ops/dfa_scan.py):
+These define the exact algorithms the device kernels mirror (ops/dfa_scan.py):
 forward unanchored break-at-match scan for the leftmost-first match END
 (dfa/lazy/lazy.go:1102 SearchAt analogue), bounded reverse anchored scan for
 the match START (dfa/lazy/lazy.go:1769 SearchReverse analogue), and the

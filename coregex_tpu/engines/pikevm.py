@@ -2,7 +2,7 @@
 
 The universal correctness backstop (reference analogue: nfa/pikevm.go —
 thread queues, DFS-priority leftmost-first, Longest/POSIX mode, capture
-slots).  This host implementation is the semantics oracle for every TPU
+slots).  This host implementation is the semantics oracle for every device
 kernel and the fallback when determinization overflows; it is also used for
 phase-2 capture extraction inside spans found by the DFA phases (the
 two-phase submatch design of meta/findall.go:49-128).

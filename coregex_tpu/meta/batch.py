@@ -1,4 +1,4 @@
-"""Batch (TPU) execution engine: strategy pipelines over device arrays.
+"""Batch (device) execution engine: strategy pipelines over device arrays.
 
 This is the corpus-scale execution layer: where the reference walks bytes in
 a single thread (meta/find.go dispatch), this engine runs whole-corpus
@@ -321,10 +321,8 @@ class BatchEngine:
         self._bitset_fwd = None  # lazy BitsetNFAScanner; False == out of scope
         self._bitset_rev = None
         self._count_sc_ascii = None  # lazy ASCII-projected CountScanner
-        self._sharded_sc = None  # lazy ShardedGoCount; False == unavailable
-        self._seq_sc = None  # lazy SeqScanner; False == unavailable
-        self._line_sc = None  # lazy LineScanner; False == unavailable
-        self._hits_sc = None  # lazy HitsScanner; False == unavailable
+        self._sharded_sc = {}  # ShardedGoCount per count scanner
+        self.served_by = None  # path that answered the last call
         self._pf_hits = 0  # runtime prefilter tracker (tracker.go:37)
         self._pf_seen = 0
         self._pf_retired = False
@@ -445,6 +443,7 @@ class BatchEngine:
                     jax.device_get(spans_dev[:cnt])).astype(np.int64)
         dev = device_corpus(data)
         strat = self.plan.strategy
+        self.served_by = "pipeline:" + strat.name.lower()
         if strat == Strategy.CHARCLASS:
             return self._charclass_spans(dev, n, limit)
         if strat == Strategy.LITERAL:
@@ -575,6 +574,8 @@ class BatchEngine:
                 return None
             if r is None:
                 return None
+            self.served_by = "device:" + (
+                b.__name__ if b is not None else "_nullable_spans_dev")
             if len(r) == 2:  # round-4 builders validate internally
                 spans, cnt = r
                 ok = None
@@ -993,13 +994,12 @@ class BatchEngine:
     # assembly, for ANY pattern whose count transducer is spans_simple —
     # the PREFIX_RUN/PREFIX_SET families (ip/version) and FULL_SCAN
     # (including >64-literal alternations through the dense DFA).  The
-    # TPU re-expression of the reference's 2-pass bidirectional FindAll
+    # lane-parallel form of the reference's 2-pass bidirectional FindAll
     # fast path (meta/findall.go:216-239).
 
     def _span_scanner(self, ascii_ok: bool):
         """Lazy SpanScanner over the span-event transducer (False when
-        out of scope: no count transducer, not spans_simple, or select
-        tree too large for the Mosaic kernel)."""
+        out of scope: no count transducer or not spans_simple)."""
         slot = "_span_sc_ascii" if ascii_ok else "_span_sc"
         cur = getattr(self, slot, None)
         if cur is None:
@@ -1011,11 +1011,7 @@ class BatchEngine:
                 cd = cd_raw.minimized()
                 if cd.spans_simple:
                     from ..ops.span_scan import SpanScanner
-                    sc = SpanScanner(cd)
-                    if (sc.impl != "pallas"
-                            or sc.dsd.tree_ops()
-                            <= self.COUNT_TREE_LIMIT):
-                        cur = sc
+                    cur = SpanScanner(cd)
             setattr(self, slot, cur)
         return cur
 
@@ -1040,9 +1036,8 @@ class BatchEngine:
             sc = False
             try:
                 self._dense(kind)
-                # Moore-minimized tables: the select tree scales with
-                # S, and anchored reverse DFAs minimize well (version's
-                # 64 -> ~30)
+                # Moore-minimized tables: anchored reverse DFAs
+                # minimize well (version's 64 -> ~30)
                 from ..ops.dfa_scan import DeviceDFA
                 dd = DeviceDFA.from_dense(
                     self._host_dense[kind].minimized())
@@ -1056,13 +1051,7 @@ class BatchEngine:
                 # non-SOT contexts to agree and use CTX_OTHER
                 if int(hs[1]) == int(hs[2]) == int(hs[3]):
                     try:
-                        cand = FlagResetScanner(dd, 3,
-                                                flag_pre_reset=True)
-                        t = cand.tables
-                        ops = t.NSEG + t.S + t.R * (t.Cp + 1)
-                        if (cand.impl != "pallas"
-                                or ops <= self.COUNT_TREE_LIMIT):
-                            sc = cand
+                        sc = FlagResetScanner(dd, 3, flag_pre_reset=True)
                     except ValueError:
                         pass
             self._flag_scanner_cache[key] = sc
@@ -1140,8 +1129,6 @@ class BatchEngine:
                     (total_d, kind_d, conv)))
             if not convh or kind == EOI_COMPLEX:
                 return None
-            if fp is not None:
-                self._spans_cnt_cache[fp] = (total, kind)
         else:
             total, kind = known_cnt
         if total == 0:
@@ -1161,13 +1148,13 @@ class BatchEngine:
         # corpus; per-call reset bits scatter in the TILE domain (a
         # corpus-sized u8 symbol intermediate measured ~7-12 ms per
         # 256 MB per call)
-        L, T, _W, _Lc = reset_geometry(n)
+        L, T, _W = reset_geometry(n)
         base_tiles = self._sym_tiles_cache_get(rsc, n, L, T)
         tiles_r = scatter_reset_tiles(base_tiles, rq, L, T // 4)
         # lane-entry hint: the reverse scan's resets are one-per-match
-        # (too sparse for the warmup window), so a fresh scan always
-        # pays one full repair rescan; a previous converged scan of the
-        # same corpus makes it one-pass (the fixpoint still validates)
+        # (too sparse for the warmup window), so a fresh scan pays a
+        # repair rescan; a previous converged scan of the same corpus
+        # makes it one-pass (the fixpoint still validates)
         rhint = self._rev_hint_cache.get(fp) if fp is not None else None
         fw_rev, _interf, conv2, rhint_out = rsc.scan_tiles(
             tiles_r, n, entries_hint=rhint)
@@ -1180,6 +1167,10 @@ class BatchEngine:
             okh = bool(jax.device_get(ok))
             if not okh:
                 return None
+            # cache only a validated count: the warm path defers its ok
+            # flag to the caller and cannot fall back
+            if fp is not None:
+                self._spans_cnt_cache[fp] = (total, kind)
             return spans, total, None
         return spans, cnt_d, ok
 
@@ -1192,8 +1183,8 @@ class BatchEngine:
         """Verified (starts, ends, kept) for candidate starts, via K
         interleaved reset-scans: subset j resets at every K-th candidate,
         so each candidate's anchored run gets ~K candidate-spacings of
-        room — contiguous passes instead of per-candidate window GATHERS
-        (~70 ns/byte on TPU).  A run still alive at its subset's next
+        room — contiguous passes instead of per-candidate window
+        GATHERS.  A run still alive at its subset's next
         reset (match longer than the room) trips the interference flag
         and K escalates; exact or None.  Candidates whose run never
         flags are dropped here — Go's walk skips failing candidates, so
@@ -1203,6 +1194,7 @@ class BatchEngine:
         from ..ops.bytescan import _bucket
         from ..ops.compact import compact_positions
         from ..ops.dfa_scan import ResetScanner
+        from ..ops.span_chain import next_value
         iota = jnp.arange(n, dtype=jnp.int32)
         INF = jnp.int32(n)
         try:
@@ -1238,13 +1230,11 @@ class BatchEngine:
                 INF1 = jnp.int32(n + 1)
                 flag1 = jnp.concatenate(
                     [flag, jnp.full(1, eoi_flag, bool)])
-                rpos = jnp.where(ext, iota1, INF1)
-                fpos = jnp.where(flag1, iota1, INF1)
                 nr_ex = jnp.concatenate(
-                    [jax.lax.cummin(rpos[::-1])[::-1][1:],
+                    [next_value(ext, iota1, INF1)[1:],
                      jnp.full(1, n + 1, jnp.int32)])
                 nf_ex = jnp.concatenate(
-                    [jax.lax.cummin(fpos[::-1])[::-1][1:],
+                    [next_value(flag1, iota1, INF1)[1:],
                      jnp.full(1, n + 1, jnp.int32)])
                 endm = flag1 & (nf_ex >= nr_ex)  # last flag per interval
                 has = ext & (nf_ex < nr_ex)      # verified candidates
@@ -1321,10 +1311,7 @@ class BatchEngine:
         if not sc:
             return None
         fdev = device_corpus_flipped(self._bidi_data)
-        try:
-            fr, conv = sc.flags(fdev)
-        except Exception:  # pragma: no cover - device specific
-            return None
+        fr, conv = sc.flags(fdev)
         # flags[p] = a reversed match ends at boundary p+1 (match
         # delay), i.e. a forward start at n - (p+1): flip flags[:n]
         smask = jnp.flip(fr[:n])
@@ -1432,13 +1419,14 @@ class BatchEngine:
             sp = self._bitset_spans(device_corpus(data), data, n, 1)
             return None if sp is None else len(sp) > 0
         if strat != Strategy.FULL_SCAN:
-            sp = self.find_all_spans(data, limit=1)
-            return None if sp is None else len(sp) > 0
+            m = self.find_first(data)
+            return None if m is FALLBACK else m is not None
         from ..dfa.dense import CTX_SOT
         from ..ops.dfa_scan import ChunkScanner, flags_count_upto
         from ..utils.corpus_cache import device_corpus
         dev = device_corpus(data)
         fwd = self._dense("fwd_all")
+        self.served_by = "dfa_scan"
         sc = ChunkScanner(fwd)
         flags, exits, conv, (L, T) = sc.scan_device(dev)
         if not bool(jax.device_get(conv)):
@@ -1449,18 +1437,13 @@ class BatchEngine:
         exit_n = sc._exit_at_n(dev, exits, L, T, n)
         return bool(fwd.host_eoi[exit_n, CTX_SOT])
 
-    # a select tree larger than this compiles for minutes and runs below
-    # the predicate kernels; such patterns keep the legacy pipelines
-    COUNT_TREE_LIMIT = 768
-
     def _make_count_scanner(self, ascii_only: bool):
         """Build a CountScanner over the FindAll-count transducer, or
         False when out of scope.  ascii_only builds the ASCII-projected
         tables (the reference's dot-optimized ASCII NFA,
         meta/compile.go:386-430): exact whenever the corpus has no byte
         >= 0x80, and typically 3-6 byte classes instead of the 15-25 the
-        UTF-8 rune automaton needs — the difference between a tiny
-        Mosaic select tree and the slow onehot-MXU fallback."""
+        UTF-8 rune automaton needs."""
         from ..dfa.countdfa import (build_count_dfa,
                                     build_count_dfa_nullable)
         from ..ops.count_scan import CountScanner
@@ -1482,13 +1465,6 @@ class BatchEngine:
         cd_raw = cd
         cd = cd.without_spans().minimized()
         sc = CountScanner(cd)
-        d = sc.dcd
-        tree_ops = d.NB + d.NSEG + d.S + d.R * (d.Cp + 1)
-        if sc.impl == "pallas" and tree_ops > self.COUNT_TREE_LIMIT:
-            # Mosaic select tree too large (per-byte op count over the
-            # row/column-merged table): switch to the gather-free
-            # onehot MXU path (same exactness)
-            sc = CountScanner(cd, impl="onehot")
         # unminimized span-event transducer for the bidirectional span
         # path (ops/span_scan.py); minimized span-aware on first use
         sc.span_cd_raw = cd_raw
@@ -1508,8 +1484,7 @@ class BatchEngine:
         """Lazy CountScanner over the FindAll-count transducer
         (dfa/countdfa.py; the nullable variant with Go empty-match rules
         for nullable patterns); False when the pattern is out of scope
-        (POSIX-longest, chain/state overflow, or a select tree too large
-        for the Mosaic kernel)."""
+        (POSIX-longest, chain/state overflow)."""
         if self._count_sc is None:
             self._count_sc = False
             if not self.longest:
@@ -1527,142 +1502,33 @@ class BatchEngine:
                 return sc
         return self._count_scanner()
 
-    def _seq_scanner(self):
-        """Lazy predicate sequential scanner (ops/seq_scan.py) for the
-        literal-set and line-shape count strategies; False when the
-        shape or backend is out of scope."""
-        if self._seq_sc is None:
-            self._seq_sc = False
-            import jax
-            from ..ops.seq_scan import MODE_LINE, MODE_MULTI, SeqScanner
-            if jax.default_backend() != "tpu":
-                return self._seq_sc
-            strat = self.plan.strategy
-            if strat in (Strategy.LITERAL, Strategy.MULTI_LITERAL):
-                nds = self.plan.literals
-                if SeqScanner.supported(nds):
-                    self._seq_sc = SeqScanner(MODE_MULTI, nds)
-            elif strat == Strategy.LINE_SHAPE and not self.longest:
-                sp = self.plan.split
-                a_univ, b_empty, b_univ, a_is_empty = \
-                    self._line_shape_parts(sp)
-                if (a_univ != UNIV_ANY and b_univ != UNIV_ANY
-                        and (sp.line_anchored or a_univ == UNIV_LINE
-                             or a_is_empty)):
-                    anchored = sp.line_anchored and \
-                        len(sp.prefix_literal) > 0
-                    prefix = sp.prefix_literal if anchored else b""
-                    if SeqScanner.supported([sp.lit], prefix,
-                                            line_mode=True):
-                        self._seq_sc = SeqScanner(
-                            MODE_LINE, [sp.lit], prefix=prefix,
-                            anchored=anchored)
-            elif strat == Strategy.FULL_SCAN and not self.longest:
-                # `.*\.(txt|log|md)`-style literal-set line shapes
-                # (ReverseSuffixSetSearcher analogue)
-                ls = litmod.line_set_split(self.ast)
-                if ls is not None:
-                    anchored = ls.line_anchored and \
-                        len(ls.prefix_literal) > 0
-                    prefix = ls.prefix_literal if anchored else b""
-                    if SeqScanner.supported(ls.lits, prefix,
-                                            line_mode=True):
-                        self._seq_sc = SeqScanner(
-                            MODE_LINE, ls.lits, prefix=prefix,
-                            anchored=anchored)
-        return self._seq_sc
+    def _sharded_counter(self, sc):
+        """Multi-device sequence-parallel counter over count scanner
+        `sc` (parallel/sharded_count.py): each device scans its shard
+        with the one-card transducer and shards stitch exactly.  False
+        when only one device is visible."""
+        import jax
+        if not sc or len(jax.devices()) <= 1:
+            return False
+        shc = self._sharded_sc.get(id(sc))
+        if shc is None:
+            from ..parallel.shard import default_mesh
+            from ..parallel.sharded_count import ShardedGoCount
+            shc = ShardedGoCount(sc, default_mesh())
+            self._sharded_sc[id(sc)] = shc
+        return shc
 
-    def _line_shape_args(self):
-        """(needles, prefix, anchored) when the pattern is a line shape
-        the line kernels can count, else None."""
-        strat = self.plan.strategy
-        if self.longest:
-            return None
-        if strat == Strategy.LINE_SHAPE:
-            sp = self.plan.split
-            a_univ, b_empty, b_univ, a_is_empty = self._line_shape_parts(sp)
-            if (a_univ != UNIV_ANY and b_univ != UNIV_ANY
-                    and (sp.line_anchored or a_univ == UNIV_LINE
-                         or a_is_empty)):
-                anchored = sp.line_anchored and len(sp.prefix_literal) > 0
-                prefix = sp.prefix_literal if anchored else b""
-                return [sp.lit], prefix, anchored
-        elif strat == Strategy.FULL_SCAN:
-            ls = litmod.line_set_split(self.ast)
-            if ls is not None:
-                anchored = ls.line_anchored and len(ls.prefix_literal) > 0
-                prefix = ls.prefix_literal if anchored else b""
-                return ls.lits, prefix, anchored
-        return None
-
-    def _line_scanner(self):
-        """Lazy parallel line-count scanner (ops/line_scan.py), preferred
-        over the sequential kernel: one launch, always exact."""
-        if self._line_sc is None:
-            self._line_sc = False
-            import jax
-            from ..ops.line_scan import LineScanner
-            if jax.default_backend() != "tpu":
-                return self._line_sc
-            args = self._line_shape_args()
-            if args is not None:
-                needles, prefix, anchored = args
-                if LineScanner.supported(needles, prefix):
-                    self._line_sc = LineScanner(needles, prefix=prefix,
-                                                anchored=anchored)
-        return self._line_sc
-
-    def _hits_scanner(self):
-        """Lazy parallel literal-set scanner: raw-hit count with exact
-        runtime overlap detection (falls back on overlap)."""
-        if self._hits_sc is None:
-            self._hits_sc = False
-            import jax
-            from ..ops.line_scan import HitsScanner
-            if jax.default_backend() != "tpu":
-                return self._hits_sc
-            if self.plan.strategy in (Strategy.LITERAL,
-                                      Strategy.MULTI_LITERAL):
-                nds = self.plan.literals
-                if HitsScanner.supported(nds):
-                    self._hits_sc = HitsScanner(nds)
-        return self._hits_sc
-
-    def _try_scanner(self, scanner, dev, slot: str, **kw):
-        """Run a device scanner, permanently retiring it on compile or
-        runtime failure (graceful degradation, the reference's
-        engine-constructor-failure downgrade analogue)."""
-        try:
-            return scanner.count(dev, **kw)
-        except Exception as ex:  # pragma: no cover - device specific
-            from .config import debug
-            debug(1, f"scanner {slot} failed ({type(ex).__name__}); "
-                     f"retired: {ex}")
-            setattr(self, slot, False)
-            return None
-
-    def _sharded_counter(self):
-        """Lazy multi-device sequence-parallel counter: shards the corpus
-        over the visible device mesh and stitches exactly via transfer
-        functions (parallel/sharded_count.py); False when only one device
-        is visible or the pattern has no count transducer."""
-        if self._sharded_sc is None:
-            self._sharded_sc = False
-            import jax
-            if len(jax.devices()) > 1:
-                sc = self._count_scanner()
-                if sc:
-                    from ..parallel.shard import default_mesh
-                    from ..parallel.sharded_count import (Phase1TooWide,
-                                                          ShardedGoCount)
-                    try:
-                        self._sharded_sc = ShardedGoCount(
-                            sc.cd, default_mesh())
-                    except Phase1TooWide:
-                        # all-entries enumeration too wide: the plain
-                        # single-device transducer scan wins
-                        self._sharded_sc = False
-        return self._sharded_sc
+    def _scanner_count(self, sc, data: np.ndarray) -> Optional[int]:
+        """Count through scanner `sc`: sharded over the mesh when more
+        than one device is visible, else on the one device.  None when
+        boundary repair did not converge (the caller falls back)."""
+        shc = self._sharded_counter(sc)
+        if shc:
+            self.served_by = "count_transducer_sharded"
+            return shc.count(data)
+        from ..utils.corpus_cache import device_corpus
+        self.served_by = "count_transducer"
+        return sc.count(device_corpus(data))
 
     @_device_serial
     def nullable_count(self, data: np.ndarray) -> Optional[int]:
@@ -1680,32 +1546,22 @@ class BatchEngine:
             mx = int(data.max())
             if mx >= 0xC2 and bool(((data >= 0xC2) & (data <= 0xF4)).any()):
                 return None
-        from ..utils.corpus_cache import device_corpus
-        shc = self._sharded_counter()
-        if shc:
-            try:
-                return shc.count(data)
-            except Exception as ex:  # pragma: no cover - device specific
-                from .config import debug
-                debug(1, f"sharded nullable count failed "
-                         f"({type(ex).__name__}); retired: {ex}")
-                self._sharded_sc = False
-        dev = device_corpus(data)
-        slot = "_count_sc_ascii" if sc is self._count_sc_ascii \
-            else "_count_sc"
-        return self._try_scanner(sc, dev, slot)
+        return self._scanner_count(sc, data)
 
     @_device_serial
     def count(self, data: np.ndarray) -> int:
         """Match count with device-side fast paths (Count,
         meta/findall.go:297 analogue): most strategies reduce to a single
         launch + one scalar sync without materializing spans.  With more
-        than one device visible, the corpus shards over the mesh
-        (SURVEY.md §2.9 sequence parallelism)."""
+        than one device visible, the count transducer shards the corpus
+        over the mesh (SURVEY.md §2.9 sequence parallelism).  Records
+        the path that answered in `served_by`."""
         import jax
         from ..utils.corpus_cache import device_corpus
         strat = self.plan.strategy
+        self.served_by = None
         if strat == Strategy.END_ANCHORED:
+            self.served_by = "end_anchored"
             return len(self._end_anchored_spans(data, len(data)))
         if strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY):
             # the nullable count transducer (Go empty-match rules baked
@@ -1719,15 +1575,11 @@ class BatchEngine:
                 return c
             sp = self.find_all_spans(data)
             return None if sp is None else len(sp)
-        shc = self._sharded_counter()
-        if shc:
-            try:
-                return shc.count(data)
-            except Exception as ex:  # pragma: no cover - device specific
-                from .config import debug
-                debug(1, f"sharded count failed ({type(ex).__name__}); "
-                         f"retired: {ex}")
-                self._sharded_sc = False
+        sc = self._count_scanner_for(data)
+        if len(jax.devices()) > 1 and sc:
+            c = self._scanner_count(sc, data)
+            if c is not None:
+                return c
         dev = device_corpus(data)
         if strat == Strategy.CHARCLASS:
             from ..ops.bytescan import class_run_count
@@ -1735,35 +1587,21 @@ class BatchEngine:
             # plus (whole-run) form counts one match per run of len >= min,
             # exactly the k == -1 reduction
             kmax = -1 if cc.plus else cc.max
+            self.served_by = "class_run"
             return class_run_count(dev, np.array(cc.table, dtype=bool),
                                    cc.min, kmax)
-        # parallel single-launch kernels: line shapes and literal sets
-        lsc = self._line_scanner()
-        if lsc:
-            c = self._try_scanner(lsc, dev, "_line_sc", data_host=data)
-            if c is not None:
-                return c
-        hsc = self._hits_scanner()
-        if hsc:
-            c = self._try_scanner(hsc, dev, "_hits_sc")
-            if c is not None:
-                return c
-        # predicate sequential kernels: literal sets and line shapes
-        sq = self._seq_scanner()
-        if sq:
-            c = self._try_scanner(sq, dev, "_seq_sc")
-            if c is not None:
-                return c
         if strat == Strategy.LITERAL:
             from ..ops.bytescan import literal_self_overlaps, memmem_count
             lit = self.plan.literals[0]
             if not literal_self_overlaps(lit):
+                self.served_by = "memmem"
                 return memmem_count(dev, lit)
         if strat == Strategy.MULTI_LITERAL:
             from ..ops.bytescan import _multi_count_kernel
             lits = tuple(tuple(l) for l in self.plan.literals)
             cnt, overlap = jax.device_get(_multi_count_kernel(dev, lits))
             if not bool(overlap):
+                self.served_by = "multi_literal"
                 return int(cnt)
         # sparse-candidate strategies: when the inner/prefix literal is
         # rare, the candidate pipeline beats a full-corpus DFA scan.  The
@@ -1776,25 +1614,27 @@ class BatchEngine:
             n = len(data)
             cnt = self._candidate_count(dev)
             if cnt == 0:
+                self.served_by = "candidates"
                 return 0
-            if cnt <= max(n >> 12, 1024) or not self._count_scanner_for(data):
+            if cnt <= max(n >> 12, 1024) or not sc:
                 if cnt <= max(n // 64, 1024):
-                    return len(self.find_all_spans(data))
+                    sp = self.find_all_spans(data)
+                    self.served_by = "candidates+" + str(self.served_by)
+                    return len(sp)
         # universal single-launch path: the count transducer scan
-        sc = self._count_scanner_for(data)
         if sc:
-            slot = "_count_sc_ascii" if sc is self._count_sc_ascii \
-                else "_count_sc"
-            c = self._try_scanner(sc, dev, slot)
+            c = self._scanner_count(sc, data)
             if c is not None:
                 return c
         if strat == Strategy.PREFIX_RUN:
             c = self._prefix_run_count_device(dev, data, len(data))
             if c is not None:
+                self.served_by = "prefix_run"
                 return c
         if strat == Strategy.LINE_SHAPE:
             c = self._line_shape_count_device(dev, len(data))
             if c is not None:
+                self.served_by = "line_shape"
                 return c
         sp = self.find_all_spans(data)
         return None if sp is None else len(sp)
@@ -1819,6 +1659,7 @@ class BatchEngine:
             return None
         dev = device_corpus(data)
         strat = self.plan.strategy
+        self.served_by = "bytescan"
         if strat == Strategy.LITERAL:
             # chunked: first-match should touch O(prefix) HBM, not build
             # a whole-corpus match mask for a hit at offset 100
@@ -1860,6 +1701,7 @@ class BatchEngine:
         if strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY):
             # single leftmost match is O(match length) on host
             return FALLBACK
+        self.served_by = "dfa_scan"
         return self._find_first_dfa(dev, data, n)
 
     def _charclass_first(self, dev, n) -> Optional[Tuple[int, int]]:
@@ -1889,7 +1731,7 @@ class BatchEngine:
         from ..dfa.dense import CTX_SOT, DEAD
         from ..ops.dfa_scan import ChunkScanner, flags_last
         fwd = self._dense("fwd_break")
-        sc = ChunkScanner(fwd)
+        sc = ChunkScanner(fwd, dead_stops=True)
         c = min(n, 1 << 22)
         e = -1
         while True:
@@ -2256,7 +2098,7 @@ class BatchEngine:
         start offsets."""
         import jax
         import jax.numpy as jnp
-        from ..ops.dfa_scan import _bucket, _impl_default, _window_scan_flags
+        from ..ops.dfa_scan import _bucket, _window_scan_flags
         from ..utils.corpus_cache import device_corpus_flipped
         rp = self._dense(kind)
         fdev = device_corpus_flipped(data)
@@ -2265,7 +2107,6 @@ class BatchEngine:
         todo = np.arange(len(cand_end))
         W = 64
         j0 = (n - cand_end).astype(np.int64)  # flipped-coords lane starts
-        impl = _impl_default()
         MAXB = WindowScanner.MAX_LANES  # bounded per-launch lane batches
         while len(todo):
             nxt_parts: List[np.ndarray] = []
@@ -2276,10 +2117,10 @@ class BatchEngine:
                 sb[:len(batch)] = j0[batch]
                 Wc = min(W, n + 1)
                 flags, alive = _window_scan_flags(
-                    rp.delta, rp.match_on, rp.comb, rp.match_eoi,
+                    rp.delta, rp.match_on, rp.match_eoi,
                     rp.starts, rp.bounds, fdev, jnp.asarray(sb),
                     jnp.int32(n), jnp.full(B, n, dtype=jnp.int32), B=B,
-                    W=Wc, S=rp.num_states, C=rp.num_classes, impl=impl)
+                    W=Wc, S=rp.num_states, C=rp.num_classes)
                 flags = np.asarray(jax.device_get(flags))[:len(batch)]
                 alive = np.asarray(jax.device_get(alive))[:len(batch)]
                 done = ~alive
@@ -2409,38 +2250,21 @@ class BatchEngine:
         if not sc:
             return None
         fdev = device_corpus_flipped(data)
-        ends, ok = self._bitset_try(sc.ends, fdev, "_bitset_rev")
+        ends, ok = sc.ends(fdev)
         if not ok or ends is None:
             return None
         return np.sort((n - ends).astype(np.int64))
-
-    def _bitset_try(self, fn, dev, slot):
-        try:
-            out, ok = fn(dev)
-            return out, ok
-        except Exception as ex:  # pragma: no cover - device specific
-            from .config import debug
-            debug(1, f"bitset scanner {slot} failed "
-                     f"({type(ex).__name__}); retired: {ex}")
-            setattr(self, slot, False)
-            return None, False
 
     def _bitset_is_match(self, dev, n) -> Optional[bool]:
         import jax
         sc = self._bitset_scanner("fwd")
         if not sc:
             return None
-        try:
-            flags, conv = sc.flags(dev)
-            if not bool(jax.device_get(conv)):
-                return None
-            from ..ops.bytescan import mask_count
-            return int(jax.device_get(mask_count(flags[:n]))) > 0
-        except Exception as ex:  # pragma: no cover - device specific
-            from .config import debug
-            debug(1, f"bitset is_match failed ({type(ex).__name__}): {ex}")
-            self._bitset_fwd = False
+        flags, conv = sc.flags(dev)
+        if not bool(jax.device_get(conv)):
             return None
+        from ..ops.bytescan import mask_count
+        return int(jax.device_get(mask_count(flags[:n]))) > 0
 
     def _bitset_spans(self, dev, data, n, limit) -> Optional[np.ndarray]:
         """Spans for DFA-overflow patterns: device start discovery +
@@ -2523,55 +2347,6 @@ class BatchEngine:
         return np.array(out, dtype=np.int64).reshape(-1, 2)
 
     # .. full scan ........................................................
-    def _sharded_starts(self, data, n) -> Optional[np.ndarray]:
-        """Multi-device match-start discovery: the anchored-reverse
-        all-ends scan over the FLIPPED corpus, sharded over the mesh with
-        per-shard compaction (parallel/shard.py:make_sharded_ends) — the
-        sharded spans front half; verification windows then run on the
-        merged candidate set.  None when out of scope (single device,
-        tiny input, or per-shard buffer overflow)."""
-        import jax
-        if len(jax.devices()) <= 1 or n < 1 << 16:
-            return None
-        from ..dfa.search import anchored_last_end
-        from ..parallel.shard import default_mesh, make_sharded_ends
-        if getattr(self, "_sharded_ends_fn", None) is False:
-            return None  # previously failed: retired
-        rev = self._dense("rev_all")
-        cap = max(4096, n // 256)
-        if (getattr(self, "_sharded_ends_fn", None) is None
-                or cap > getattr(self, "_sharded_ends_cap", 0)):
-            # rebuild when a larger corpus needs a bigger per-shard match
-            # buffer than the cached fn was compiled with
-            self._sharded_ends_fn = make_sharded_ends(
-                default_mesh(), rev, cap=cap)
-            self._sharded_ends_cap = cap
-        ndev = len(jax.devices())
-        flipped = np.ascontiguousarray(data[::-1])
-        pad = (-n) % ndev
-        if pad:
-            flipped = np.concatenate(
-                [flipped, np.zeros(pad, dtype=np.uint8)])
-        try:
-            pos, cnts = jax.device_get(self._sharded_ends_fn(flipped))
-        except Exception as ex:  # pragma: no cover - device specific
-            from .config import debug
-            debug(1, f"sharded starts failed ({type(ex).__name__}): {ex}")
-            self._sharded_ends_fn = False
-            return None
-        cap = len(pos) // ndev
-        if (cnts > cap).any():
-            return None  # buffer overflow: single-device path
-        jpos = np.sort(pos[pos < n].astype(np.int64))
-        starts = n - jpos
-        # match start at offset 0 == reverse flag at flipped EOI: resolve
-        # on host with one anchored forward probe (O(match length))
-        self._dense(self._verify_kind())
-        fwd_anch = self._host_dense[self._verify_kind()]
-        if anchored_last_end(fwd_anch, data, 0) >= 0:
-            starts = np.append(starts, 0)
-        return np.sort(starts.astype(np.int64))
-
     def _all_starts(self, dev, data, n) -> np.ndarray:
         """All match-start offsets via the reverse all-ends chunk scan,
         device-reduced to compact positions."""
@@ -2579,9 +2354,6 @@ class BatchEngine:
         from ..dfa.dense import CTX_SOT
         from ..ops.dfa_scan import ChunkScanner, flag_positions
         from ..utils.corpus_cache import device_corpus_flipped
-        st = self._sharded_starts(data, n)
-        if st is not None:
-            return st
         rev = self._dense("rev_all")
         fdev = device_corpus_flipped(data)
         sc = ChunkScanner(rev)

@@ -6,7 +6,7 @@ and of the public Regexp surface (regex.go).  Numeric results are byte
 offsets, like Go's regexp.
 
 Execution backends: every search primitive has a host (numpy) reference
-path; TPU batch paths (ops/) are used by the corpus-scale APIs
+path; device batch paths (ops/) are used by the corpus-scale APIs
 (count/find_all over large inputs) when JAX is available.
 """
 
@@ -123,7 +123,7 @@ class Engine:
         self._anchored_lit = (anchored_literal.detect(parsed.ast)
                               if not longest else None)
 
-        self._batch = None  # lazy TPU execution plan
+        self._batch = None  # lazy device execution plan
         self._onepass = None  # lazy OnePass capture DFA (False == rejected)
         self._bt = None  # lazy BoundedBacktracker
         self.batch_threshold = self.config.batch_threshold
@@ -138,7 +138,7 @@ class Engine:
                 config=None, **kw) -> "Engine":
         return cls(parse(pattern), longest=longest, config=config)
 
-    # -- batch (TPU) plan -----------------------------------------------
+    # -- batch (device) plan --------------------------------------------
     def batch_engine(self):
         if self._batch is None:
             from .batch import BatchEngine

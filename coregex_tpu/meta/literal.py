@@ -1,7 +1,7 @@
 """Literal analysis over the AST.
 
 Capability analogue of the reference's literal/ package (extractor.go
-prefix/suffix/inner extraction + Seq algebra) re-scoped for the TPU
+prefix/suffix/inner extraction + Seq algebra) re-scoped for the device
 strategies: exact-literal sets for the literal engines, inner-literal
 splits (PrefixAST/SuffixAST, meta/reverse_inner.go:206-256 analogue) for
 bidirectional candidate verification, and universal `.*` prefix/suffix
@@ -195,7 +195,7 @@ class InnerSplit:
 # Bytes common in natural text / logs: candidate scans keyed on one of
 # these drown in false positives.  Everything else (mostly punctuation and
 # control bytes: @ # $ % ^ & * | \ ~ { } [ ] < > = + ; ? !) is rare enough
-# to anchor an inner-literal scan on — the TPU reframing of the
+# to anchor an inner-literal scan on — the data-parallel reframing of the
 # reference's empirical byte-frequency ranking (simd/byte_frequencies.go:18
 # SelectRareBytes), which serves the same purpose for memmem needles.
 _COMMON_BYTES = frozenset(

@@ -3,7 +3,7 @@
 The reference runs nullable patterns (`\\w*`, `(foo)?`, ...) through the
 same lazy-DFA FindAll loop as everything else, applying the empty-match
 rules of regexp's allMatches as it walks (/root/reference/meta/findall.go:176-283,
-regex.go:790-850).  A TPU batch scan can't walk; instead we exploit the
+regex.go:790-850).  A device batch scan can't walk; instead we exploit the
 structure of leftmost-first priority:
 
 For a nullable pattern R whose empty match is UNCONDITIONAL (no look

@@ -5,7 +5,7 @@ with its operations (literal/seq.go:93 — LongestCommonPrefix/Suffix :343,
 :394, CrossForward :433, KeepFirstBytes :470, Dedup :491, Minimize :278)
 and the prefix extractor (literal/extractor.go:128 ExtractPrefixes, with
 the 250-entry overflow → trim + dedup + inexact marking of
-extractor.go:177-365).  Re-designed for the TPU engine: the extracted
+extractor.go:177-365).  Re-designed for the device engine: the extracted
 prefix set feeds the PREFIX_SET strategy, where candidate match *starts*
 come from one multi-needle compare scan and verification is a batch of
 forward-anchored DFA windows — no reverse scan at all (the reference

@@ -1,7 +1,7 @@
 """Strategy selection — the meta-engine's decision tree.
 
 Capability analogue of the reference's 17-way SelectStrategy
-(meta/strategy.go:1377-1546), re-grouped for the TPU execution model into
+(meta/strategy.go:1377-1546), re-grouped for the device execution model into
 families that share kernels:
 
   CHARCLASS     — [class]{m,k} run extraction (CharClassSearcher analogue)
@@ -84,7 +84,7 @@ def select(ast: Node, dfas_ok: bool) -> Plan:
         # scanner build and fall back to the host from the batch layer.
         # The lazy-DFA degradation of the reference
         # (dfa/lazy/lazy.go:1472-1502) keeps its scan on the CPU; this
-        # keeps ours on the TPU.
+        # keeps ours on the device.
         if not nullable:
             return Plan(Strategy.BITSET_NFA,
                         "DFA overflow; device bitset-NFA scan",

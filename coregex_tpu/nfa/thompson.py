@@ -70,8 +70,7 @@ class Compiler:
         holds: bytes >= 0x80 never occur, so rune branches above ASCII
         are unreachable and `.` collapses to a single byte range.  Byte
         classes shrink from ~15-25 (UTF-8 boundaries) to ~3-6, which is
-        what makes the dense count/scan tables small enough for the
-        Mosaic select-tree kernels."""
+        what keeps the dense count/scan tables small."""
         self.reverse = reverse
         self.with_captures = with_captures and not reverse
         self.ascii_only = ascii_only

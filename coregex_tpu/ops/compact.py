@@ -1,228 +1,23 @@
-"""Stream compaction: positions of set bits of a giant mask, on device.
+"""Stream compaction: positions of set entries of a giant mask, on device.
 
-THE primitive of every span-extraction path (run starts/ends, literal
-hits, candidate sets, SpanDFA events all reduce to "positions of set
-bits").  XLA's own lowerings are serial at this size on TPU (measured on
-a 192M mask: scatter 1.7 s, sort 0.76 s, nonzero 2.5 s, and the old
-cumsum+searchsorted compaction ~2 µs/hit in gathers), so this is a
-Mosaic kernel built from three TPU-native ideas:
-
-1. Row-major exclusive cumsum per [R,128] block via MXU triangular
-   matmuls (no serial scan): incl = m @ TRIU, row bases via a strict
-   lower-triangular [R,R] matmul.
-
-2. Collision-free left-packing by binary-weighted shifts: each hit must
-   move left by d = pos - rank; since targets are distinct and d is
-   monotone over hits, routing bit-by-bit (low to high) never collides
-   (monotone-permutation butterfly routing; property-tested against
-   flatnonzero).  Hit position and remaining distance are packed into
-   one int32 (pos << 15 | d) so each round is one roll + two selects.
-
-3. Fixed-shape output DMA with the sequential-grid overwrite trick: the
-   TPU grid runs in order, so each block writes its packed rows (plus
-   garbage tail) at the running aligned offset and the next block's
-   write overwrites the tail.  A <128-entry carry row keeps writes
-   lane-aligned; the carry is merged by a dynamic lane-rotation done as
-   a one-hot permutation matmul (split into 16-bit halves so f32 MXU
-   stays exact).
-
-The reference has no analogue (its outputs are CPU-resident appends,
-e.g. /root/reference/meta/findall.go:176-283); this is what "append to
-a result vector" becomes on a machine with no scatter.
+The primitive of every span-extraction path (run starts/ends, literal
+hits, candidate sets and transducer events all reduce to "positions of
+set bits").  One inclusive cumsum gives each hit its rank; a scatter
+writes the positions.  Both are memory-bound
+parallel passes on the GPU.  The reference has no analogue (its outputs
+are CPU-resident appends, e.g. meta/findall.go:176-283).
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# block geometry: R rows of 128 lanes = 16384 mask entries per grid step
-R_BLK = 128
-CH = R_BLK * 128
-_DMASK = (1 << 15) - 1  # low 15 bits of the packed word carry distance
-
-
-def _roll_rowmajor(x, s):
-    """x viewed row-major [R,128]; returns y with y[f] = x[f+s] (left
-    shift by static s); wrapped tail entries are garbage (callers mask
-    via the flat-index validity test)."""
-    s_row, s_lane = s // 128, s % 128
-
-    def rollr(v, k):  # roll rows by -k, k possibly 0 (Mosaic: no 0-size
-        return jnp.roll(v, -k, axis=0) if k else v  # slices)
-
-    if s_lane == 0:
-        return rollr(x, s_row)
-    a = jnp.roll(rollr(x, s_row), -s_lane, axis=1)
-    b = jnp.roll(a, -1, axis=0)  # lane/row rolls commute: one copy
-    lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(lane < 128 - s_lane, a, b)
-
-
-def _rot_right_dyn(x, s):
-    """Rotate [R,128] row-major RIGHT by dynamic s in [0,128): returns
-    ([R,128] rotated block, [1,128] spill row holding the last s lanes).
-    Lane rotation is a one-hot permutation matmul, split into 16-bit
-    halves so f32 accumulation is exact for arbitrary int32 values."""
-    R = x.shape[0]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    tgt = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    # P[j, c] = 1 where c == (j + s) mod 128; y_row = x_row @ P rotates
-    # each row right by s
-    P = (((lane + s) % 128) == tgt).astype(jnp.float32)
-
-    def rot(v):
-        lo = (v & 0xFFFF).astype(jnp.float32)
-        hi = ((v >> 16) & 0xFFFF).astype(jnp.float32)
-        rlo = jax.lax.dot(lo, P, precision=jax.lax.Precision.HIGHEST)
-        rhi = jax.lax.dot(hi, P, precision=jax.lax.Precision.HIGHEST)
-        return rlo.astype(jnp.int32) | (rhi.astype(jnp.int32) << 16)
-
-    xr = rot(x)
-    lane1 = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-    prev = jnp.roll(xr, 1, axis=0)  # row r gets row r-1's rotation
-    y = jnp.where(lane1 < s, prev, xr)
-    spill = jnp.where(
-        jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1) < s,
-        xr[R - 1:R, :], 0)
-    return y, spill
-
-
-def _compact_kernel(nbits, mask_ref, out_ref, cnt_ref, scal_ref,
-                    carry_ref, asm_ref, sem):
-    pid = pl.program_id(0)
-    R = R_BLK
-    m = (mask_ref[:] != 0)
-    mf = m.astype(jnp.float32)
-    # row-major exclusive cumsum via triangular matmuls
-    src = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    tgt = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    triu = (src <= tgt).astype(jnp.float32)
-    incl = jax.lax.dot(mf, triu, precision=jax.lax.Precision.HIGHEST)
-    rowsum = incl[:, 127:128]                       # [R,1]
-    rs = jax.lax.broadcasted_iota(jnp.int32, (R, R), 0)
-    ts = jax.lax.broadcasted_iota(jnp.int32, (R, R), 1)
-    tril = (rs > ts).astype(jnp.float32)            # strict lower
-    rowbase = jax.lax.dot(tril, rowsum,
-                          precision=jax.lax.Precision.HIGHEST)  # [R,1]
-    cum_excl = (rowbase + incl - mf).astype(jnp.int32)
-    cnt = (rowbase[R - 1, 0] + rowsum[R - 1, 0]).astype(jnp.int32)
-
-    flat = (jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0) * 128
-            + jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1))
-    d = jnp.where(m, flat - cum_excl, 0)
-    pack = (flat << 15) | d
-    # collision-free binary-weighted left packing (low bit first)
-    for b in range(nbits):
-        s = 1 << b
-        moved_in = _roll_rowmajor(pack, s)
-        valid_src = flat < (CH - s)
-        src_here = valid_src & ((moved_in & _DMASK & s) != 0)
-        self_moves = (pack & _DMASK & s) != 0
-        pack = jnp.where(src_here, moved_in - s,
-                         jnp.where(self_moves, pack & ~jnp.int32(_DMASK),
-                                   pack))
-    local = (pack >> 15) & _DMASK
-    positions = local + pid * CH  # global positions (int32)
-
-    # carry merge: rotate right by carry_len, splice the carry row in
-    clen = scal_ref[0]
-    rot, spill = _rot_right_dyn(positions, clen)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-    row = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0)
-    rot = jnp.where((row == 0) & (lane < clen), carry_ref[0:1, :], rot)
-    asm_ref[0:R, :] = rot
-    asm_ref[R:R + 1, :] = spill
-    total_here = clen + cnt
-    wrows = total_here // 128
-    new_clen = total_here % 128
-    # stash the new carry (the partial row) before the DMA
-    carry_ref[0:1, :] = asm_ref[pl.ds(wrows, 1), :]
-    base_row = scal_ref[1]
-    cap_rows = out_ref.shape[0]
-
-    @pl.when(base_row + R + 1 <= cap_rows)
-    def _write():
-        cp = pltpu.make_async_copy(
-            asm_ref.at[0:R + 1, :],
-            out_ref.at[pl.ds(base_row, R + 1), :], sem)
-        cp.start()
-        cp.wait()
-
-    scal_ref[0] = new_clen
-    scal_ref[1] = base_row + wrows
-    scal_ref[2] = scal_ref[2] + cnt
-
-    @pl.when(pid == pl.num_programs(0) - 1)
-    def _flush():
-        n_sent = pl.num_programs(0) * CH
-        fin = jnp.where(
-            jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1) < new_clen,
-            carry_ref[0:1, :], n_sent)
-        asm_ref[0:1, :] = fin[0:1, :]
-        cp2 = pltpu.make_async_copy(
-            asm_ref.at[0:1, :],
-            out_ref.at[pl.ds(scal_ref[1], 1), :], sem)
-        cp2.start()
-        cp2.wait()
-        cnt_ref[0] = scal_ref[2]
-
-
-def _kernel_init(nbits, mask_ref, out_ref, cnt_ref, scal_ref, carry_ref,
-                 asm_ref, sem):
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        scal_ref[0] = 0
-        scal_ref[1] = 0
-        scal_ref[2] = 0
-        cnt_ref[0] = 0
-
-    _compact_kernel(nbits, mask_ref, out_ref, cnt_ref, scal_ref,
-                    carry_ref, asm_ref, sem)
-
-
-@functools.partial(jax.jit, static_argnames=("cap", "interpret"))
-def _compact_call(mask8, cap: int, interpret: bool = False):
-    n = mask8.shape[0]
-    nc = n // CH
-    cap_rows = -(-cap // 128) + R_BLK + 2
-    nbits = max(1, (CH - 1).bit_length())
-    grid = (nc,)
-    out, cnt = pl.pallas_call(
-        functools.partial(_kernel_init, nbits),
-        grid=grid,
-        in_specs=[pl.BlockSpec((R_BLK, 128), lambda i: (i, 0))],
-        out_specs=[
-            pl.BlockSpec(memory_space=pltpu.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((cap_rows, 128), jnp.int32),
-            jax.ShapeDtypeStruct((1,), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.SMEM((4,), jnp.int32),
-            pltpu.VMEM((1, 128), jnp.int32),
-            pltpu.VMEM((R_BLK + 1, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        interpret=interpret,
-    )(mask8.reshape(nc * R_BLK, 128))
-    flat = out.reshape(-1)[:cap]
-    # overwrite-trick garbage lives beyond cnt: clamp to the sentinel
-    flat = jnp.where(jnp.arange(cap, dtype=jnp.int32) < cnt[0], flat,
-                     jnp.int32(nc * CH))
-    return flat, cnt[0]
+import jax
 
 
 def _compact_xla(mask8, cap: int):
-    """Scatter fallback (CPU / tiny inputs): same contract."""
+    """(int32[cap] ascending positions padded with n, int32 count)."""
     n = mask8.shape[0]
     m = mask8 != 0
     cum = jnp.cumsum(m.astype(jnp.int32))
@@ -239,20 +34,7 @@ def _compact_xla_jit(mask8, cap: int):
 
 def compact_positions(mask, cap: int):
     """Positions of set entries of `mask` (any int/bool dtype, 1-D),
-    ascending, as (int32[cap] padded with sentinels >= n, int32 count).
-    Mosaic kernel on TPU; XLA scatter elsewhere."""
-    n = int(mask.shape[0])
-    mask8 = mask.astype(jnp.int8)
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu or n < 4 * CH:
-        if n == 0:
-            return jnp.full(cap, 0, jnp.int32), jnp.int32(0)
-        return _compact_xla_jit(mask8, cap)
-    pad = (-n) % CH
-    if pad:
-        mask8 = jnp.concatenate(
-            [mask8, jnp.zeros(pad, dtype=jnp.int8)])
-    out, cnt = _compact_call(mask8, cap)
-    # clamp padded-region sentinels to exactly n (the _mask_nonzero
-    # contract callers rely on)
-    return jnp.minimum(out, jnp.int32(n)), cnt
+    ascending, as (int32[cap] padded with the sentinel n, int32 count)."""
+    if int(mask.shape[0]) == 0:
+        return jnp.full(cap, 0, jnp.int32), jnp.int32(0)
+    return _compact_xla_jit(mask.astype(jnp.int8), cap)

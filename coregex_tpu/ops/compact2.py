@@ -1,296 +1,33 @@
-"""Output-sensitive stream compaction with payload routing (round 5).
+"""Output-sensitive stream compaction with payload routing.
 
 Generalizes ops/compact.py two ways, both aimed at making span
 extraction cost scale with MATCHES instead of corpus size (the
 reference's extraction cost is just its scan plus an append,
-/root/reference/meta/findall.go:176-283):
+meta/findall.go:176-283):
 
-1. PAYLOAD ROUTING: the Mosaic kernel can carry 1-2 int32 payload
-   arrays through the same collision-free binary-weighted routing as
-   the positions, so "compact these VALUES where mask" needs one pass
-   (the building block of the sparse chain below and of span assembly
-   from flag+value streams).
+1. PAYLOAD ROUTING: `compact_pay` carries int32 payload arrays through
+   the same rank scatter as the positions, so "compact these VALUES
+   where mask" is one pass (the building block of the sparse chain
+   below and of span assembly from flag+value streams).
 
 2. SPARSE CHAIN: set-bit extraction in n/32 + ~12*hits work instead of
-   n.  The mask is packed to 32-bit words (XLA, HBM-speed); nonzero
-   WORDS are compacted with their values as payload (domain n/32); each
-   word expands to its nonzero BYTES (domain 4*Kw <= 4*hits); each byte
-   expands to its set bits (domain 8*Kb <= 8*hits).  Every stage is the
-   same payload kernel, so the chain is exact and ordered.  Measured on
-   chip (tools/profile_compact.py): the single-level kernel is
-   element-count-bound at ~4.3 elems/ns regardless of density, so the
-   chain wins whenever hits/n < ~1/15.
-
-The base kernel here also folds in the measured round-4 lever results:
-skip-empty blocks (free for the chain's padded tails), a conditional
-DMA size ladder instead of the unconditional 129-row overwrite write,
-R=256 blocks (d = pos - rank fits 15 bits exactly at R=256; R=512
-overflows the packing — measured MISMATCH), and an overflow flag
-instead of silent truncation.
+   n.  The mask is packed to 32-bit words; nonzero WORDS are compacted
+   with their values as payload (domain n/32); each word expands to its
+   nonzero BYTES (domain 4*Kw <= 4*hits); each byte expands to its set
+   bits (domain 8*Kb <= 8*hits).  Every stage is the same payload
+   compaction, so the chain is exact and ordered.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_DMASK = (1 << 15) - 1
-R_DEF = 256
-
-
-def _roll_rowmajor(x, s):
-    """x viewed row-major [R,128]; y[f] = x[f+s] for static s (garbage
-    wrap tail; callers mask via flat-index validity)."""
-    s_row, s_lane = s // 128, s % 128
-
-    def rollr(v, k):
-        return jnp.roll(v, -k, axis=0) if k else v
-
-    if s_lane == 0:
-        return rollr(x, s_row)
-    a = jnp.roll(rollr(x, s_row), -s_lane, axis=1)
-    b = jnp.roll(a, -1, axis=0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(lane < 128 - s_lane, a, b)
-
-
-def _rot_P(s):
-    """One-hot permutation matrix rotating each row RIGHT by dynamic
-    s in [0,128) when applied as row @ P."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-    tgt = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-    return (((lane + s) % 128) == tgt).astype(jnp.float32)
-
-
-def _rot_apply(x, P, s, R):
-    """Row-major right-rotation of [R,128] by s via P (exact for any
-    int32: 16-bit halves through the f32 MXU)."""
-    def rot(v):
-        lo = (v & 0xFFFF).astype(jnp.float32)
-        hi = ((v >> 16) & 0xFFFF).astype(jnp.float32)
-        rlo = jax.lax.dot(lo, P, precision=jax.lax.Precision.HIGHEST)
-        rhi = jax.lax.dot(hi, P, precision=jax.lax.Precision.HIGHEST)
-        return rlo.astype(jnp.int32) | (rhi.astype(jnp.int32) << 16)
-
-    xr = rot(x)
-    lane1 = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-    prev = jnp.roll(xr, 1, axis=0)
-    y = jnp.where(lane1 < s, prev, xr)
-    spill = jnp.where(
-        jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1) < s,
-        xr[R - 1:R, :], 0)
-    return y, spill
-
-
-def _make_kernel(R: int, npay: int):
-    if R > 256:
-        raise ValueError("R > 256 overflows the 15-bit distance field")
-    CH = R * 128
-    nbits = max(1, (CH - 1).bit_length())
-
-    def kernel(*refs):
-        i = 0
-        mask_ref = refs[i]; i += 1
-        pay_refs = refs[i:i + npay]; i += npay
-        out_ref = refs[i]; i += 1
-        payout_refs = refs[i:i + npay]; i += npay
-        cnt_ref = refs[i]; i += 1
-        scal_ref = refs[i]; i += 1
-        carry_ref = refs[i]; i += 1
-        carrypay_refs = refs[i:i + npay]; i += npay
-        asm_ref = refs[i]; i += 1
-        asmpay_refs = refs[i:i + npay]; i += npay
-        sem = refs[i]
-
-        pid = pl.program_id(0)
-
-        @pl.when(pid == 0)
-        def _init():
-            scal_ref[0] = 0  # carry length (lanes)
-            scal_ref[1] = 0  # base row of next write
-            scal_ref[2] = 0  # running count
-            scal_ref[3] = 0  # overflow flag
-
-        m = (mask_ref[:] != 0)
-        cnt_fast = m.astype(jnp.int32).sum()
-
-        @pl.when(cnt_fast > 0)
-        def _body():
-            mf = m.astype(jnp.float32)
-            src = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-            tgt = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-            triu = (src <= tgt).astype(jnp.float32)
-            incl = jax.lax.dot(mf, triu,
-                               precision=jax.lax.Precision.HIGHEST)
-            rowsum = incl[:, 127:128]
-            rs = jax.lax.broadcasted_iota(jnp.int32, (R, R), 0)
-            ts = jax.lax.broadcasted_iota(jnp.int32, (R, R), 1)
-            tril = (rs > ts).astype(jnp.float32)
-            rowbase = jax.lax.dot(tril, rowsum,
-                                  precision=jax.lax.Precision.HIGHEST)
-            cum_excl = (rowbase + incl - mf).astype(jnp.int32)
-            cnt = (rowbase[R - 1, 0] + rowsum[R - 1, 0]).astype(jnp.int32)
-
-            flat = (jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0) * 128
-                    + jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1))
-            d = jnp.where(m, flat - cum_excl, 0)
-            pack = (flat << 15) | d
-            pays = [p[:] for p in pay_refs]
-            # collision-free binary-weighted left packing (low bit
-            # first); payloads ride the same routing decisions
-            for b in range(nbits):
-                s = 1 << b
-                moved_in = _roll_rowmajor(pack, s)
-                valid_src = flat < (CH - s)
-                src_here = valid_src & ((moved_in & _DMASK & s) != 0)
-                self_moves = (pack & _DMASK & s) != 0
-                pack = jnp.where(
-                    src_here, moved_in - s,
-                    jnp.where(self_moves,
-                              pack & ~jnp.int32(_DMASK), pack))
-                for k in range(npay):
-                    pays[k] = jnp.where(
-                        src_here, _roll_rowmajor(pays[k], s), pays[k])
-            local = (pack >> 15) & _DMASK
-            positions = local + pid * CH
-
-            # merge with the carried partial row: rotate right by clen,
-            # splice the carry lanes into row 0
-            clen = scal_ref[0]
-            P = _rot_P(clen)
-            lane = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 1)
-            row = jax.lax.broadcasted_iota(jnp.int32, (R, 128), 0)
-            rot, spill = _rot_apply(positions, P, clen, R)
-            rot = jnp.where((row == 0) & (lane < clen),
-                            carry_ref[0:1, :], rot)
-            asm_ref[0:R, :] = rot
-            asm_ref[R:R + 1, :] = spill
-            for k in range(npay):
-                rp, sp = _rot_apply(pays[k], P, clen, R)
-                rp = jnp.where((row == 0) & (lane < clen),
-                               carrypay_refs[k][0:1, :], rp)
-                asmpay_refs[k][0:R, :] = rp
-                asmpay_refs[k][R:R + 1, :] = sp
-            total_here = clen + cnt
-            wrows = total_here // 128
-            new_clen = total_here % 128
-            carry_ref[0:1, :] = asm_ref[pl.ds(wrows, 1), :]
-            for k in range(npay):
-                carrypay_refs[k][0:1, :] = \
-                    asmpay_refs[k][pl.ds(wrows, 1), :]
-            base_row = scal_ref[1]
-            cap_rows = out_ref.shape[0]
-
-            # conditional size-laddered write: only filled rows need to
-            # go out (garbage above them is overwritten by later
-            # writes); wrows == 0 writes nothing at all
-            for lo, W in ((0, 8), (8, 32), (32, R)):
-                @pl.when((wrows > lo) & (wrows <= W)
-                         & (base_row + W <= cap_rows))
-                def _write(W=W):
-                    cp = pltpu.make_async_copy(
-                        asm_ref.at[0:W, :],
-                        out_ref.at[pl.ds(base_row, W), :], sem)
-                    cp.start()
-                    cp.wait()
-                    for k in range(npay):
-                        cpk = pltpu.make_async_copy(
-                            asmpay_refs[k].at[0:W, :],
-                            payout_refs[k].at[pl.ds(base_row, W), :],
-                            sem)
-                        cpk.start()
-                        cpk.wait()
-
-            @pl.when(base_row + wrows > cap_rows)
-            def _oflow():
-                scal_ref[3] = 1
-
-            scal_ref[0] = new_clen
-            scal_ref[1] = base_row + wrows
-            scal_ref[2] = scal_ref[2] + cnt
-
-        @pl.when(pid == pl.num_programs(0) - 1)
-        def _flush():
-            n_sent = pl.num_programs(0) * CH
-            cap_rows = out_ref.shape[0]
-            fin = jnp.where(
-                jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-                < scal_ref[0], carry_ref[0:1, :], n_sent)
-            asm_ref[0:1, :] = fin
-
-            @pl.when(scal_ref[1] < cap_rows)
-            def _wr():
-                cp2 = pltpu.make_async_copy(
-                    asm_ref.at[0:1, :],
-                    out_ref.at[pl.ds(scal_ref[1], 1), :], sem)
-                cp2.start()
-                cp2.wait()
-                for k in range(npay):
-                    asmpay_refs[k][0:1, :] = carrypay_refs[k][0:1, :]
-                    cpk = pltpu.make_async_copy(
-                        asmpay_refs[k].at[0:1, :],
-                        payout_refs[k].at[pl.ds(scal_ref[1], 1), :], sem)
-                    cpk.start()
-                    cpk.wait()
-
-            @pl.when(scal_ref[1] >= cap_rows)
-            def _of2():
-                scal_ref[3] = 1
-
-            cnt_ref[0] = scal_ref[2]
-            cnt_ref[1] = scal_ref[3]
-
-    return kernel, CH
-
-
-@functools.partial(
-    jax.jit, static_argnames=("cap", "R", "npay", "interpret"))
-def _compact_pay_call(mask8, pays, cap: int, R: int, npay: int,
-                      interpret: bool = False):
-    n = mask8.shape[0]
-    kernel, CH = _make_kernel(R, npay)
-    nc = n // CH
-    # +R+2 headroom: the write ladder rounds wrows up to {8,32,R}, and
-    # those garbage rows must never make a NEEDED write hit the guard
-    cap_rows = -(-cap // 128) + R + 2
-    outs = pl.pallas_call(
-        kernel,
-        grid=(nc,),
-        in_specs=[pl.BlockSpec((R, 128), lambda i: (i, 0))] * (1 + npay),
-        out_specs=[pl.BlockSpec(memory_space=pltpu.ANY)] * (1 + npay)
-        + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_shape=[jax.ShapeDtypeStruct((cap_rows, 128), jnp.int32)]
-        * (1 + npay)
-        + [jax.ShapeDtypeStruct((2,), jnp.int32)],
-        scratch_shapes=[
-            pltpu.SMEM((4,), jnp.int32),
-        ] + [pltpu.VMEM((1, 128), jnp.int32)] * (1 + npay) + [
-            pltpu.VMEM((R + 1, 128), jnp.int32),
-        ] * (1 + npay) + [
-            pltpu.SemaphoreType.DMA(()),
-        ],
-        interpret=interpret,
-    )(mask8.reshape(nc * R, 128),
-      *[p.reshape(nc * R, 128) for p in pays])
-    out = outs[0]
-    pay_out = outs[1:1 + npay]
-    scal = outs[1 + npay]
-    cnt, ovf = scal[0], scal[1]
-    live = jnp.arange(cap, dtype=jnp.int32) < cnt
-    flat = jnp.where(live, out.reshape(-1)[:cap], jnp.int32(nc * CH))
-    pflat = [jnp.where(live, p.reshape(-1)[:cap], 0) for p in pay_out]
-    ok = (ovf == 0) & (cnt <= cap)
-    return (flat, *pflat, cnt, ok)
 
 
 def _compact_pay_xla(mask8, pays, cap: int, n_sent: int):
-    """Scatter fallback (CPU / tiny inputs): same contract."""
+    """(pos, *pays, cnt, ok): cumsum ranks, one scatter per output."""
     n = mask8.shape[0]
     m = mask8 != 0
     cum = jnp.cumsum(m.astype(jnp.int32))
@@ -313,35 +50,18 @@ def _compact_pay_xla_jit(mask8, pays, cap: int, n_sent: int):
     return _compact_pay_xla(mask8, pays, cap, n_sent)
 
 
-def compact_pay(mask, pays=(), cap: int = 16, R: int = R_DEF,
-                interpret: bool = False):
+def compact_pay(mask, pays=(), cap: int = 16):
     """Positions of set entries of 1-D `mask` (ascending, int32[cap]
-    padded with sentinel >= n) plus each payload array compacted by the
+    padded with the sentinel n) plus each payload array compacted by the
     same permutation.  Returns (pos, *pays, cnt, ok) — all device; ok
-    is False when cnt exceeded cap (results truncated).
-
-    Mosaic kernel on TPU; XLA scatter elsewhere / tiny inputs."""
+    is False when cnt exceeded cap (results truncated)."""
     n = int(mask.shape[0])
     npay = len(pays)
-    mask8 = mask.astype(jnp.int8)
-    pays = [p.astype(jnp.int32) for p in pays]
-    CH = R * 128
-    on_tpu = jax.default_backend() == "tpu" and not interpret
-    if (not on_tpu and not interpret) or n < 4 * CH:
-        if n == 0:
-            z = jnp.zeros(cap, jnp.int32)
-            return (z, *[z] * npay, jnp.int32(0), jnp.bool_(True))
-        return _compact_pay_xla_jit(mask8, tuple(pays), cap, n)
-    pad = (-n) % CH
-    if pad:
-        zi = jnp.zeros(pad, dtype=jnp.int8)
-        mask8 = jnp.concatenate([mask8, zi])
-        pays = [jnp.concatenate([p, zi.astype(jnp.int32)]) for p in pays]
-    out = _compact_pay_call(mask8, tuple(pays), cap, R, npay,
-                            interpret=interpret)
-    pos, rest = out[0], out[1:]
-    # clamp padded-region sentinels to exactly n
-    return (jnp.minimum(pos, jnp.int32(n)), *rest)
+    if n == 0:
+        z = jnp.zeros(cap, jnp.int32)
+        return (z, *[z] * npay, jnp.int32(0), jnp.bool_(True))
+    pays = tuple(p.astype(jnp.int32) for p in pays)
+    return _compact_pay_xla_jit(mask.astype(jnp.int8), pays, cap, n)
 
 
 # ---------------------------------------------------------------------------
@@ -350,35 +70,22 @@ def compact_pay(mask, pays=(), cap: int = 16, R: int = R_DEF,
 
 def pack_words(mask, nw: int):
     """bool/int8 mask [nw*32] -> int32 words [nw], bit j = mask[32i+j].
-
-    Formulated as a [nw,32] @ [32,2] f32 matmul (two 16-bit halves,
-    exact: each half sums distinct powers of two <= 2^16-1 < 2^24) so
-    the reduction rides the MXU — measured ~2 ms per 256 MB mask vs
-    ~14 ms for the shift+sum lowering.  Default (bf16-pass) precision
-    is exact HERE because every input (0/1 and 2^j) is bf16-exact and
-    the MXU accumulates in f32 — unlike the >256 table-value matmuls
-    that required Precision.HIGHEST (see ops/dfa_scan.py notes).  Call
-    INSIDE the jit that produces the mask where possible."""
-    b = (mask.reshape(nw, 32) != 0).astype(jnp.bfloat16)
-    W = np.zeros((32, 2), np.float32)
-    W[:16, 0] = 2.0 ** np.arange(16)
-    W[16:, 1] = 2.0 ** np.arange(16)
-    # bf16 operands halve the [nw,32] buffer (2n bytes, the peak-HBM
-    # term of fused producers); 0/1 and 2^j are bf16-exact and the MXU
-    # accumulates in f32, so the result is still exact
-    r = jax.lax.dot(b, jnp.asarray(W).astype(jnp.bfloat16),
-                    preferred_element_type=jnp.float32)
-    return r[:, 0].astype(jnp.int32) | (r[:, 1].astype(jnp.int32) << 16)
+    The bits are distinct, so the sum is their OR (bit 31 wraps to the
+    sign bit).  Call INSIDE the jit that produces the mask where
+    possible."""
+    b = (mask.reshape(nw, 32) != 0).astype(jnp.int32)
+    return (b << jnp.arange(32, dtype=jnp.int32)).sum(axis=1,
+                                                       dtype=jnp.int32)
 
 
-def _chain_body(words, n_dev, cap: int, interpret: bool):
+def _chain_body(words, n_dev, cap: int):
     """words[nwb] -> (pos[cap], cnt, ok): the 3-level sparse chain.
     Traced inside one jit (caps static, the sentinel value n dynamic)
     -> one dispatch."""
     nwb = int(words.shape[0])
     capw = min(nwb, cap)
     wpos, wval, cntw, ok1 = compact_pay(
-        (words != 0), [words], capw, interpret=interpret)
+        (words != 0), [words], capw)
     capb = min(4 * capw, cap)
     live = (jnp.arange(capw, dtype=jnp.int32) < cntw)[:, None]
     j4 = jax.lax.broadcasted_iota(jnp.int32, (capw, 4), 1)
@@ -386,14 +93,13 @@ def _chain_body(words, n_dev, cap: int, interpret: bool):
     m2 = live & (bval != 0)
     base2 = wpos[:, None] * 32 + 8 * j4
     _, bval_c, bbase_c, cntb, ok2 = compact_pay(
-        m2.reshape(-1), [bval.reshape(-1), base2.reshape(-1)], capb,
-        interpret=interpret)
+        m2.reshape(-1), [bval.reshape(-1), base2.reshape(-1)], capb)
     live3 = (jnp.arange(capb, dtype=jnp.int32) < cntb)[:, None]
     j8 = jax.lax.broadcasted_iota(jnp.int32, (capb, 8), 1)
     m3 = live3 & (((bval_c[:, None] >> j8) & 1) != 0)
     pos3 = bbase_c[:, None] + j8
     _, pos, cnt, ok3 = compact_pay(
-        m3.reshape(-1), [pos3.reshape(-1)], cap, interpret=interpret)
+        m3.reshape(-1), [pos3.reshape(-1)], cap)
     live_o = jnp.arange(cap, dtype=jnp.int32) < cnt
     pos = jnp.where(live_o, pos, n_dev.astype(jnp.int32))
     return pos, cnt, ok1 & ok2 & ok3
@@ -406,13 +112,12 @@ def _bucket_up(x: int, lo: int = 1024) -> int:
     return b
 
 
-@functools.partial(jax.jit, static_argnames=("nwb", "cap", "interpret"))
-def _chain_jit(words_padded, n_dev, nwb: int, cap: int, interpret: bool):
-    return _chain_body(words_padded, n_dev, cap, interpret)
+@functools.partial(jax.jit, static_argnames=("nwb", "cap"))
+def _chain_jit(words_padded, n_dev, nwb: int, cap: int):
+    return _chain_body(words_padded, n_dev, cap)
 
 
-def sparse_positions_words(words, n: int, cap: int,
-                           interpret: bool = False):
+def sparse_positions_words(words, n: int, cap: int):
     """Set-bit positions from PRE-PACKED words (see pack_words) in
     nw + ~12*cap kernel work: one fused dispatch.  `cap` MUST bound the
     true hit count (ok=False + truncation otherwise).  Returns
@@ -430,11 +135,10 @@ def sparse_positions_words(words, n: int, cap: int,
     if nwb != nw:
         words = jnp.concatenate(
             [words, jnp.zeros(nwb - nw, dtype=jnp.int32)])
-    return _chain_jit(words, jnp.asarray(n, dtype=jnp.int32), nwb, cap,
-                      interpret)
+    return _chain_jit(words, jnp.asarray(n, dtype=jnp.int32), nwb, cap)
 
 
-def _events_body(union, kinds, n_dev, cap: int, interpret: bool):
+def _events_body(union, kinds, n_dev, cap: int):
     """union[nwb] + per-kind words -> (pos[cap], kind[cap], cnt, ok):
     the sparse chain carrying a kind BITMASK per event.  kind bit j of
     an event = mask j had the bit.  K <= 4 kinds ride as L1 payloads;
@@ -444,8 +148,7 @@ def _events_body(union, kinds, n_dev, cap: int, interpret: bool):
     assert 1 <= K <= 4
     nwb = int(union.shape[0])
     capw = min(nwb, cap)
-    out1 = compact_pay((union != 0), [union] + list(kinds), capw,
-                       interpret=interpret)
+    out1 = compact_pay((union != 0), [union] + list(kinds), capw)
     wpos, wu = out1[0], out1[1]
     wk = out1[2:2 + K]
     cntw = out1[2 + K]
@@ -463,8 +166,7 @@ def _events_body(union, kinds, n_dev, cap: int, interpret: bool):
         kpack = kpack | (kb << (8 * kk))
     out2 = compact_pay(
         m2.reshape(-1),
-        [bu.reshape(-1), base2.reshape(-1), kpack.reshape(-1)], capb,
-        interpret=interpret)
+        [bu.reshape(-1), base2.reshape(-1), kpack.reshape(-1)], capb)
     bu_c, bbase_c, kpack_c, cntb, ok2 = out2[1], out2[2], out2[3], \
         out2[4], out2[5]
     live3 = (jnp.arange(capb, dtype=jnp.int32) < cntb)[:, None]
@@ -476,22 +178,19 @@ def _events_body(union, kinds, n_dev, cap: int, interpret: bool):
         kb = (kpack_c[:, None] >> (8 * kk)) & 0xFF
         kind3 = kind3 | (((kb >> j8) & 1) << kk)
     out3 = compact_pay(
-        m3.reshape(-1), [pos3.reshape(-1), kind3.reshape(-1)], cap,
-        interpret=interpret)
+        m3.reshape(-1), [pos3.reshape(-1), kind3.reshape(-1)], cap)
     pos, kind, cnt, ok3 = out3[1], out3[2], out3[3], out3[4]
     live_o = jnp.arange(cap, dtype=jnp.int32) < cnt
     pos = jnp.where(live_o, pos, n_dev.astype(jnp.int32))
     return pos, kind, cnt, ok1 & ok2 & ok3
 
 
-@functools.partial(jax.jit, static_argnames=("nwb", "cap", "interpret"))
-def _events_jit(union, kinds, n_dev, nwb: int, cap: int,
-                interpret: bool):
-    return _events_body(union, list(kinds), n_dev, cap, interpret)
+@functools.partial(jax.jit, static_argnames=("nwb", "cap"))
+def _events_jit(union, kinds, n_dev, nwb: int, cap: int):
+    return _events_body(union, list(kinds), n_dev, cap)
 
 
-def sparse_events_words(kind_words, n: int, cap: int,
-                        interpret: bool = False):
+def sparse_events_words(kind_words, n: int, cap: int):
     """Position-ordered EVENT STREAM from K <= 4 word-packed masks:
     (pos[cap] ascending with sentinel n, kind[cap] bitmask of which
     masks fired, cnt, ok).  The building block of the event-stream span
@@ -510,11 +209,10 @@ def sparse_events_words(kind_words, n: int, cap: int,
         union = jnp.concatenate([union, pad])
         kinds = [jnp.concatenate([k, pad]) for k in kinds]
     return _events_jit(union, tuple(kinds),
-                       jnp.asarray(n, dtype=jnp.int32), nwb, cap,
-                       interpret)
+                       jnp.asarray(n, dtype=jnp.int32), nwb, cap)
 
 
-def _chain_pay_body(evw, wordpays, n_dev, cap: int, interpret: bool):
+def _chain_pay_body(evw, wordpays, n_dev, cap: int):
     """Event words + P per-WORD int32 payload arrays -> (pos[cap],
     pay0[cap], ..., cnt, ok): every event inherits its word's payload
     values.  The trick that makes per-candidate lookups gather-free:
@@ -523,8 +221,7 @@ def _chain_pay_body(evw, wordpays, n_dev, cap: int, interpret: bool):
     P = len(wordpays)
     nwb = int(evw.shape[0])
     capw = min(nwb, cap)
-    out1 = compact_pay((evw != 0), [evw] + list(wordpays), capw,
-                       interpret=interpret)
+    out1 = compact_pay((evw != 0), [evw] + list(wordpays), capw)
     wpos, wu = out1[0], out1[1]
     wp = out1[2:2 + P]
     cntw, ok1 = out1[2 + P], out1[3 + P]
@@ -539,7 +236,7 @@ def _chain_pay_body(evw, wordpays, n_dev, cap: int, interpret: bool):
         m2.reshape(-1),
         [bu.reshape(-1), base2.reshape(-1)]
         + [bc(p[:, None], (capw, 4)).reshape(-1) for p in wp],
-        capb, interpret=interpret)
+        capb)
     bu_c, bbase_c = out2[1], out2[2]
     wp_c = out2[3:3 + P]
     cntb, ok2 = out2[3 + P], out2[4 + P]
@@ -550,8 +247,7 @@ def _chain_pay_body(evw, wordpays, n_dev, cap: int, interpret: bool):
     out3 = compact_pay(
         m3.reshape(-1),
         [pos3.reshape(-1)]
-        + [bc(p[:, None], (capb, 8)).reshape(-1) for p in wp_c], cap,
-        interpret=interpret)
+        + [bc(p[:, None], (capb, 8)).reshape(-1) for p in wp_c], cap)
     pos = out3[1]
     pays = out3[2:2 + P]
     cnt, ok3 = out3[2 + P], out3[3 + P]
@@ -560,14 +256,12 @@ def _chain_pay_body(evw, wordpays, n_dev, cap: int, interpret: bool):
     return (pos, *pays, cnt, ok1 & ok2 & ok3)
 
 
-@functools.partial(jax.jit, static_argnames=("nwb", "cap", "interpret"))
-def _chain_pay_jit(evw, wordpays, n_dev, nwb: int, cap: int,
-                   interpret: bool):
-    return _chain_pay_body(evw, list(wordpays), n_dev, cap, interpret)
+@functools.partial(jax.jit, static_argnames=("nwb", "cap"))
+def _chain_pay_jit(evw, wordpays, n_dev, nwb: int, cap: int):
+    return _chain_pay_body(evw, list(wordpays), n_dev, cap)
 
 
-def sparse_chain_payloads(event_words, word_payloads, n: int, cap: int,
-                          interpret: bool = False):
+def sparse_chain_payloads(event_words, word_payloads, n: int, cap: int):
     """Compact event positions from word-packed `event_words` along
     with, per event, the value of each [nw] int32 payload array at the
     event's WORD.  Returns (pos[cap], pay0[cap], ..., cnt, ok).
@@ -584,11 +278,10 @@ def sparse_chain_payloads(event_words, word_payloads, n: int, cap: int,
     else:
         pays = [p.astype(jnp.int32) for p in pays]
     return _chain_pay_jit(evw, tuple(pays),
-                          jnp.asarray(n, dtype=jnp.int32), nwb, cap,
-                          interpret)
+                          jnp.asarray(n, dtype=jnp.int32), nwb, cap)
 
 
-def sparse_positions(mask, cap: int, interpret: bool = False):
+def sparse_positions(mask, cap: int):
     """As sparse_positions_words but from a 1-D bool/int8 mask (packs
     words itself — callers that jit their mask production should call
     pack_words inside it and use sparse_positions_words)."""
@@ -602,7 +295,7 @@ def sparse_positions(mask, cap: int, interpret: bool = False):
     if pad:
         mask8 = jnp.concatenate([mask8, jnp.zeros(pad, dtype=jnp.int8)])
     words = _pack_jit(mask8, nw)
-    return sparse_positions_words(words, n, cap, interpret)
+    return sparse_positions_words(words, n, cap)
 
 
 @functools.partial(jax.jit, static_argnames=("nw",))
@@ -615,17 +308,13 @@ def _pack_jit(mask8, nw: int):
 SPARSE_DENSITY = 1.0 / 20
 
 
-def positions_auto(mask, cap: int, nhits_hint=None,
-                   interpret: bool = False):
+def positions_auto(mask, cap: int, nhits_hint=None):
     """compact via the sparse chain when the expected density is low,
-    the single-level kernel otherwise.  nhits_hint: expected hit count
-    (host int) — callers usually know it from a count sync; defaults to
-    assuming dense."""
+    the single-level compaction otherwise.  nhits_hint: expected hit
+    count (host int) — callers usually know it from a count sync;
+    defaults to assuming dense."""
     n = int(mask.shape[0])
-    use_sparse = (nhits_hint is not None and n > 0
-                  and nhits_hint / n < SPARSE_DENSITY
-                  and (jax.default_backend() == "tpu" or interpret))
-    if use_sparse:
-        return sparse_positions(mask, cap, interpret=interpret)
-    pos, cnt, ok = compact_pay(mask, (), cap, interpret=interpret)
+    if nhits_hint is not None and n > 0 and nhits_hint / n < SPARSE_DENSITY:
+        return sparse_positions(mask, cap)
+    pos, cnt, ok = compact_pay(mask, (), cap)
     return pos, cnt, ok

@@ -1,23 +1,20 @@
-"""Flag-word-emitting fast DFA scan (round 5).
+"""Flag-word-emitting reset scan.
 
-The round-4 ResetScanner verifies candidate suffixes at ~1.5 GB/s (a
-per-byte lax.scan over lanes), 10x slower than the count path's Mosaic
-select-tree kernel.  This module runs the SAME reset-scan semantics
-through the count kernel's machinery (word tiles, merged select tree,
-warmup + boundary-repair fixpoint — ops/count_scan.py) by moving the
-reset bit into the ALPHABET:
+The reset-scan semantics of dfa_scan._chunk_scan_reset run through the
+transducer kernel (ops/transducer.py, "flags" mode) by moving the reset
+bit into the ALPHABET:
 
-    symbol  = 2*byte_class + reset_bit          (u8, <= 2C <= 64)
+    symbol  = 2*byte_class + reset_bit          (u8, <= 2C <= 128)
     delta'  [s, sym] = delta[rs ? start : s, cls]
     emit'   [s, sym] = match_on[rs ? start : s, cls]   (bit 0)
                      | (rs & s != DEAD) << 1            (bit 1: interference)
 
 and the kernel, instead of summing emissions, PACKS bit 0 into int32
-flag words (32 positions per word) written once per 8 tile steps — the
-exact input the span chains consume — while bit 1 accumulates into the
-lane counters (any interference -> caller falls back).  The reset
-context (start-state column) is a compile-time constant: INNER resets
-fire right after a fixed literal, so the context byte is known.
+flag words (32 positions per word) — the exact input the span chains
+consume — while bit 1 accumulates into the lane counters (any
+interference -> caller falls back).  The reset context (start-state
+column) is a compile-time constant: INNER resets fire right after a
+fixed literal, so the context byte is known.
 
 Flags match dfa_scan._chunk_scan_reset exactly: flag at p =
 match_on[s_pre(p), cls(p)], states freeze past the limit, and the flag
@@ -36,19 +33,12 @@ import jax
 import jax.numpy as jnp
 
 from ..dfa.dense import DEAD
-from .count_scan import _make_word_tiles, plan_geometry
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    HAVE_PALLAS = False
+from . import transducer as tx
 
 
 class ResetFlagTables:
     """Extended-alphabet tables for a DeviceDFA + constant reset
-    context, row/column-merged for the select tree.
+    context, packed for the transducer kernel.
 
     flag_pre_reset=True evaluates the flag at a reset position against
     the OLD run's state instead of the fresh start (the transition
@@ -80,28 +70,8 @@ class ResetFlagTables:
                     | ((rs and s != DEAD and not flag_pre_reset) << 1))
         packed = de * 32 + ee
         self.S, self.NSEG = S, NSEG
-        col_ids: dict = {}
-        col_of = []
-        for c in range(NSEG):
-            key = tuple(packed[:, c])
-            col_of.append(col_ids.setdefault(key, len(col_ids)))
-        row_ids: dict = {}
-        row_of = []
-        for s in range(S):
-            key = tuple(packed[s])
-            row_of.append(row_ids.setdefault(key, len(row_ids)))
-        self.Cp = len(col_ids)
-        self.R = len(row_ids)
-        self.col_of = tuple(col_of)
-        self.row_of = tuple(row_of)
-        packed_rc = np.zeros((self.R, self.Cp), dtype=np.int32)
-        for s in range(S):
-            for c in range(NSEG):
-                packed_rc[row_of[s], col_of[c]] = packed[s, c]
-        self.packed_rc = jnp.asarray(packed_rc)
-        self.packed_full = jnp.asarray(packed)
+        self.table = jnp.asarray(packed.reshape(-1))
         self.bounds = np.asarray(ddfa.bounds)  # host byte-seg bounds
-        self.nbounds = int(self.bounds.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +92,7 @@ def reset_symbols(dev, rmask, bounds: Tuple[int, ...]):
 def reset_geometry(n: int):
     """Shared geometry for a [n+32]-symbol reset scan (the tile cache
     and scan_tiles must agree)."""
-    return plan_geometry(n + 32)
+    return tx.plan_geometry(n + 32)
 
 
 @functools.partial(jax.jit, static_argnames=("bounds", "L", "T4"))
@@ -136,7 +106,7 @@ def _sym_base_tiles(dev, bounds: Tuple[int, ...], L: int, T4: int):
         cls = cls + (dev >= np.uint8(b)).astype(jnp.uint8)
     sym = cls * np.uint8(2)
     sym = jnp.concatenate([sym, jnp.zeros(32, dtype=jnp.uint8)])
-    return _make_word_tiles(sym, L, T4)
+    return tx.make_word_tiles(sym, L, T4)
 
 
 @functools.partial(jax.jit, static_argnames=("L", "T4"))
@@ -145,7 +115,7 @@ def scatter_reset_tiles(base_tiles, rq, L: int, T4: int):
     symbol bytes: no carries) scattered at positions rq (int32 dropped
     when out of range).  Tile layout: word w = pos>>2 lives at flat
     index (w % T4) * L + (w // T4) with byte lane pos & 3
-    (count_scan._make_word_tiles)."""
+    (transducer.make_word_tiles)."""
     w = rq >> 2
     # dead lanes carry rq = -1 (negative: at the 1.6 GB bucket every
     # positive int32 is an in-range position); keep them negative so
@@ -158,261 +128,41 @@ def scatter_reset_tiles(base_tiles, rq, L: int, T4: int):
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernel (structure mirrors count_scan._count_kernel)
-# ---------------------------------------------------------------------------
-
-def _flag_kernel(packed_ref, entries_ref, offsets_ref, limits_ref,
-                 warm_ref, tiles_ref, flagw_ref, counts_ref, exits_ref,
-                 sync_ref, state_scr, cnt_scr, wcur_scr, *, S: int,
-                 NSEG: int, Tt4: int, W4: int, col_of: tuple,
-                 row_of: tuple, R: int, Cp: int):
-    g = pl.program_id(0)
-
-    def step_syms(word, s, cnt, wcur, live_of, emit: bool):
-        """Step 4 packed SYMBOLS (c = symbol value directly — no byte
-        bounds compares); returns (state, interf-count, flag nibble
-        accumulated into wcur by the caller)."""
-        flags4 = None
-        for k in range(4):
-            c = (word >> (8 * k)) & 255
-            col = jnp.zeros_like(c)
-            for ci in range(NSEG):
-                if col_of[ci]:
-                    col = jnp.where(c == ci, col_of[ci], col)
-            row = jnp.zeros_like(s)
-            for si in range(S):
-                if row_of[si]:
-                    row = jnp.where(s == si, row_of[si], row)
-            ceq = [col == cj for cj in range(Cp)]
-            val = jnp.zeros_like(s)
-            for ri in range(R):
-                rv = jnp.zeros_like(s)
-                for cj in range(Cp):
-                    rv = jnp.where(ceq[cj], packed_ref[ri, cj], rv)
-                val = jnp.where(row == ri, rv, val)
-            live = live_of(k)
-            if emit:
-                cnt = cnt + jnp.where(live, (val >> 1) & 1, 0)
-                fb = jnp.where(live, val & 1, 0)
-                flags4 = fb if flags4 is None else flags4 | (fb << k)
-            s = jnp.where(live, val >> 5, s)
-        return s, cnt, flags4
-
-    @pl.when(g == 0)
-    def _():
-        s = entries_ref[:]
-        cnt_scr[:] = jnp.zeros_like(cnt_scr)
-        offs = offsets_ref[:]
-        for tw in range(W4):
-            w = warm_ref[tw]
-            s, _, _ = step_syms(
-                w, s, None, None,
-                lambda k, tw=tw: (tw * 4 + k) >= offs, emit=False)
-        state_scr[:] = s
-        sync_ref[:] = s
-
-    def body(t, _):
-        w = tiles_ref[t]
-        s = state_scr[:]
-        cnt = cnt_scr[:]
-        base = (g * Tt4 + t) * 4
-        lim = limits_ref[:]
-        s, cnt, flags4 = step_syms(w, s, cnt, None,
-                                   lambda k: (base + k) < lim,
-                                   emit=True)
-        state_scr[:] = s
-        cnt_scr[:] = cnt
-        sub = t % 8
-
-        @pl.when(sub == 0)
-        def _w0():
-            wcur_scr[:] = flags4
-
-        @pl.when(sub != 0)
-        def _wk():
-            wcur_scr[:] = wcur_scr[:] | (flags4 << (sub * 4))
-
-        @pl.when(sub == 7)
-        def _flush():
-            flagw_ref[t // 8] = wcur_scr[:]
-
-        return 0
-
-    jax.lax.fori_loop(0, Tt4, body, 0, unroll=1)
-    counts_ref[:] = cnt_scr[:]
-    exits_ref[:] = state_scr[:]
-
-
-def _pallas_flag_once(packed, tiles, warm, entries, offsets, limits,
-                      S: int, NSEG: int, T4: int, Tt4: int, W4: int,
-                      Lc: int, col_of: tuple, row_of: tuple, R: int,
-                      Cp: int, interpret: bool = False):
-    n_tiles = T4 // Tt4
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(n_tiles,),
-        scratch_shapes=[
-            pltpu.VMEM((8, Lc), jnp.int32),
-            pltpu.VMEM((8, Lc), jnp.int32),
-            pltpu.VMEM((8, Lc), jnp.int32),
-        ],
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # packed [R, Cp]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # entries [8, Lc]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # offsets
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # limits
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # warm [W4, 8, Lc]
-            pl.BlockSpec((Tt4, 8, Lc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),   # tiles
-        ],
-        out_specs=[
-            pl.BlockSpec((Tt4 // 8, 8, Lc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),   # flag words
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # interf counts
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # exits
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # sync
-        ],
-    )
-    kern = functools.partial(_flag_kernel, S=S, NSEG=NSEG, Tt4=Tt4,
-                             W4=W4, col_of=col_of, row_of=row_of, R=R,
-                             Cp=Cp)
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((T4 // 8, 8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((8, Lc), jnp.int32),
-        ),
-        interpret=interpret,
-    )(packed, entries, offsets, limits, warm, tiles)
-
-
-# ---------------------------------------------------------------------------
 # Full scan: warmup guess + boundary-repair fixpoint, one jit
 # ---------------------------------------------------------------------------
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("L", "T", "W", "S", "NSEG", "Tt4", "Lc", "impl",
-                     "col_of", "row_of", "R", "Cp", "max_repair",
-                     "interpret"))
-def _flag_full(packed_rc, packed_full, tiles, n1, entries_init,
-               L: int, T: int, W: int, S: int, NSEG: int, Tt4: int,
-               Lc: int, impl: str, col_of: tuple = (),
-               row_of: tuple = (), R: int = 0, Cp: int = 0,
-               max_repair: int = 4, interpret: bool = False):
+    jax.jit, static_argnames=("L", "T", "W", "NSEG", "impl", "max_repair"))
+def _flag_full(table, tiles, n1, entries_init, L: int, T: int, W: int,
+               NSEG: int, impl: str, max_repair: int = 4):
     """Returns (flag words [L*T/32] position-major, interference count,
-    converged, lane exit states).  n1 = n + 1 (the EOI position is
+    converged, lane entry states).  n1 = n + 1 (the EOI position is
     live).  entries_init: lane entry guesses — DEAD for a fresh scan
     (resets inside the warmup window resync), or a previous converged
-    scan's exits (states AT lane starts; warmup is then skipped and the
-    fixpoint check passes in one pass)."""
-    T4, W4 = T // 4, W // 4
+    scan's entries (states AT lane starts; warmup is then skipped and
+    the fixpoint check passes in one pass)."""
     n1 = jnp.int32(n1)
-    lane_ids = jnp.arange(L, dtype=jnp.int32)
-
-    tail = tiles[T4 - W4:]
-    warm = jnp.roll(tail.reshape(W4, L), 1, axis=1).reshape(
-        W4, 8, tiles.shape[2])
     is_hint = jnp.any(entries_init != DEAD)
-    entries0 = entries_init
     # hinted entries are states AT lane starts: skip the warmup window
     # entirely (offsets == W), matching the repair passes
-    offsets0 = jnp.where(
-        is_hint, jnp.full((L,), W, jnp.int32),
-        jnp.zeros((L,), jnp.int32).at[0].set(W))
-    limits = jnp.clip(n1 - lane_ids * T, 0, T)
-
-    if impl == "pallas":
-        def scan_once(entries, offsets):
-            fw, cnts, exits, sync = _pallas_flag_once(
-                packed_rc, tiles, warm, entries.reshape(8, Lc),
-                offsets.reshape(8, Lc), limits.reshape(8, Lc), S=S,
-                NSEG=NSEG, T4=T4, Tt4=Tt4, W4=W4, Lc=Lc, col_of=col_of,
-                row_of=row_of, R=R, Cp=Cp, interpret=interpret)
-            return fw, cnts.reshape(L), exits.reshape(L), \
-                sync.reshape(L)
-    else:
-        delta_t = packed_full >> 5
-        emit_t = packed_full & 31
-
-        def scan_once(entries, offsets):
-            def body(carry, xc):
-                s, cnt = carry
-                w, is_warm, widx = xc
-                f4 = jnp.zeros_like(s)
-                for k in range(4):
-                    c = (w >> (8 * k)) & 255
-                    live = jnp.where(
-                        is_warm, (widx * 4 + k) >= offsets,
-                        (widx * 4 + k) < limits)
-                    val = packed_full[s, c]
-                    cnt = cnt + jnp.where(live & ~is_warm,
-                                          (val >> 1) & 1, 0)
-                    f4 = f4 | (jnp.where(live & ~is_warm, val & 1, 0)
-                               << k)
-                    s = jnp.where(live, val >> 5, s)
-                return (s, cnt), f4
-
-            warm_flat = warm.reshape(W4, L)
-            main_flat = tiles.reshape(T4, L)
-            xs_w = (warm_flat, jnp.ones(W4, bool),
-                    jnp.arange(W4, dtype=jnp.int32))
-            xs_m = (main_flat, jnp.zeros(T4, bool),
-                    jnp.arange(T4, dtype=jnp.int32))
-            cnt0 = jnp.zeros((L,), jnp.int32)
-            (s1, _), _ = jax.lax.scan(body, (entries, cnt0), xs_w)
-            (s2, cnt), f4s = jax.lax.scan(body, (s1, cnt0), xs_m)
-            # f4s [T4, L] nibbles -> [T4//8, 8, L] -> words
-            f8 = f4s.reshape(T4 // 8, 8, L)
-            sh = (jnp.arange(8, dtype=jnp.int32) * 4)[None, :, None]
-            fw = (f8 << sh).sum(axis=1, dtype=jnp.int32)
-            fw = fw.reshape(T4 // 8, 8, -1)
-            return fw, cnt, s2, s1
-
-    fw0, cnts0, exits0, sync0 = scan_once(entries0, offsets0)
-    real = (lane_ids * T) < n1
-
-    def want_of(exits):
-        return jnp.concatenate(
-            [jnp.full(1, DEAD, jnp.int32), exits[:-1]])
-
-    def cond(st):
-        k, fw, cnts, exits, sync = st
-        return (k < max_repair) & jnp.any(
-            real & (want_of(exits) != sync))
-
-    def rep(st):
-        k, fw, cnts, exits, sync = st
-        offs = jnp.full((L,), W, jnp.int32)
-        f2, c2, e2, sy2 = scan_once(want_of(exits), offs)
-        return (k + 1, f2, c2, e2, sy2)
-
-    k, fw, cnts, exits, sync = jax.lax.while_loop(
-        cond, rep, (jnp.int32(0), fw0, cnts0, exits0, sync0))
-    converged = ~jnp.any(real & (want_of(exits) != sync))
-    interf = cnts.sum(dtype=jnp.int32)
-    hint = want_of(exits)  # next call's one-pass entry states
-    # position-major words: lane l covers words [l*T/32, (l+1)*T/32)
-    fw_global = jnp.transpose(fw, (1, 2, 0)).reshape(-1)
+    offsets0 = jnp.where(is_hint, jnp.full((L,), W, jnp.int32),
+                         tx.first_lane_offsets(L, W))
+    real = (jnp.arange(L, dtype=jnp.int32) * T) < n1
+    dead = jnp.int32(DEAD)
+    out, converged = tx.stitch(
+        impl, "flags", table, None, entries_init, offsets0,
+        tx.lane_limits(n1, L, T), tx.warm_window(tiles, W), tiles, NSEG,
+        dead, real, W, max_repair=max_repair)
+    fw, cnts, exits, _ = out
+    hint = jnp.concatenate([dead[None], exits[:-1]])
     # mask bits past n (= n1-1): the automaton keeps walking pad
     # symbols, but only the EOI bit at n is meaningful
-    nw = fw_global.shape[0]
-    base = jnp.arange(nw, dtype=jnp.int32) * 32
-    full = base + 32 <= n1
-    partial_bits = jnp.clip(n1 - base, 0, 32)
-    pmask = jnp.where(
-        partial_bits >= 32, jnp.int32(-1),
-        (jnp.left_shift(jnp.int32(1),
-                        jnp.minimum(partial_bits, 31)) - 1))
-    fw_global = jnp.where(full, fw_global, fw_global & pmask)
-    return fw_global, interf, converged, hint
+    return (tx.positions_major(fw, n1), cnts.sum(dtype=jnp.int32),
+            converged, hint)
 
 
 class FlagResetScanner:
-    """Reset-scan with flag-WORD output at count-kernel speed.
+    """Reset-scan with flag-WORD output through the transducer kernel.
 
     scan_words(dev, rmask, n) -> (flag words over the [n+1] domain
     [ceil((n+1)/32) padded], interference count, converged) — all
@@ -422,9 +172,7 @@ class FlagResetScanner:
                  flag_pre_reset: bool = False):
         self.tables = ResetFlagTables(ddfa, reset_ctx,
                                       flag_pre_reset=flag_pre_reset)
-        self.impl = impl or ("pallas" if (jax.default_backend() == "tpu"
-                                          and HAVE_PALLAS)
-                             else "gather")
+        self.impl = impl or tx.default_impl()
 
     def byte_bounds(self) -> Tuple[int, ...]:
         """Byte segment boundaries for the symbol build (producers can
@@ -432,13 +180,11 @@ class FlagResetScanner:
         return tuple(int(b) for b in self.tables.bounds
                      if 0 < int(b) < 256)
 
-    def scan_words(self, dev, rmask, interpret: bool = False):
+    def scan_words(self, dev, rmask):
         syms = reset_symbols(dev, rmask, self.byte_bounds())
-        return self.scan_words_syms(syms, int(dev.shape[0]),
-                                    interpret=interpret)
+        return self.scan_words_syms(syms, int(dev.shape[0]))
 
-    def scan_words_syms(self, syms, n: int, interpret: bool = False,
-                        entries_hint=None):
+    def scan_words_syms(self, syms, n: int, entries_hint=None):
         """As scan_words but from a prebuilt symbol stream (length
         n + pad >= n+1; see reset_symbols).
 
@@ -446,40 +192,27 @@ class FlagResetScanner:
         converged scan of the SAME symbol stream.  Reset-scan lanes
         enter as DEAD and only resync at a reset, so when resets are
         sparse (the bidirectional span path) the first pass always pays
-        one full repair rescan; with the hint the fixpoint check passes
+        one repair rescan; with the hint the fixpoint check passes
         immediately and the scan costs one pass.  Exactness is
         unaffected — the repair loop validates the hint like any other
-        guess.  Returns (flag words, interference, converged, exits);
-        cache `exits` as the next call's hint."""
-        L, T, W, Lc = plan_geometry(int(syms.shape[0]))
-        tiles = _make_word_tiles(syms, L, T // 4)
-        return self._scan_geom(tiles, n, (L, T, W, Lc), entries_hint,
-                               interpret)
+        guess.  Returns (flag words, interference, converged, entries);
+        cache `entries` as the next call's hint."""
+        L, T, W = tx.plan_geometry(int(syms.shape[0]))
+        tiles = tx.make_word_tiles(syms, L, T // 4)
+        return self._scan_geom(tiles, n, (L, T, W), entries_hint)
 
-    def scan_tiles(self, tiles, n: int, entries_hint=None,
-                   interpret: bool = False):
+    def scan_tiles(self, tiles, n: int, entries_hint=None):
         """As scan_words_syms but from prebuilt SYMBOL WORD TILES under
         reset_geometry(n) — the bidirectional span path caches the
         reset-free tiles per corpus and scatters per-call reset bits in
         the tile domain (scatter_reset_tiles), so no corpus-sized
         per-call work remains before the kernel."""
-        return self._scan_geom(tiles, n, reset_geometry(n),
-                               entries_hint, interpret)
+        return self._scan_geom(tiles, n, reset_geometry(n), entries_hint)
 
-    def _scan_geom(self, tiles, n: int, geom, entries_hint, interpret):
-        L, T, W, Lc = geom
-        # Tt4 must be a multiple of 8 (one flag word per 8 tile steps)
-        Tt4 = min(64, max(8, (T // 4) // 4))
-        while (T // 4) % Tt4:
-            Tt4 //= 2
-        if Tt4 % 8:
-            Tt4 = 8
+    def _scan_geom(self, tiles, n: int, geom, entries_hint):
+        L, T, W = geom
         t = self.tables
         if entries_hint is None or int(entries_hint.shape[0]) != L:
             entries_hint = jnp.full((L,), DEAD, jnp.int32)
-        return _flag_full(
-            t.packed_rc, t.packed_full, tiles, n + 1, entries_hint,
-            L=L, T=T, W=W,
-            S=t.S, NSEG=t.NSEG, Tt4=Tt4, Lc=Lc, impl=self.impl,
-            col_of=t.col_of, row_of=t.row_of, R=t.R, Cp=t.Cp,
-            interpret=interpret)
+        return _flag_full(t.table, tiles, n + 1, entries_hint, L=L, T=T,
+                          W=W, NSEG=t.NSEG, impl=self.impl)

@@ -4,18 +4,18 @@ When eager determinization overflows (dfa/determinize.py state_limit),
 the reference degrades to lazy determinization with cache clears and
 finally its PikeVM (dfa/lazy/lazy.go:1472-1502, nfa/pikevm.go); this
 repo's former fallback was the host PikeVM alone (~MB/s).  This module
-keeps the corpus scan on the TPU for those patterns (SURVEY.md §7 build
+keeps the corpus scan on the device for those patterns (SURVEY.md §7 build
 item 5):
 
   * NFA RANGE states become lanes of a dense activity vector; a set of
     live Thompson threads is a 0/1 vector over the S range states plus a
     match flag.
   * One byte step is
-        alive  = active ∧ (lo[s] <= b <= hi[s])          (VPU compares)
-        next   = (alive @ CT) > 0                        (MXU matmul)
+        alive  = active ∧ (lo[s] <= b <= hi[s])          (compares)
+        next   = (alive @ CT) > 0                        (matmul)
     where CT[s] is the epsilon-closure bitset of state s's target —
     the "precomputed move masks + or-reduce" of the survey expressed as
-    a boolean mat-vec so the or-reduce runs on the MXU (sums of 0/1
+    a boolean mat-vec so the or-reduce runs as a matmul (sums of 0/1
     terms are exactly zero iff all terms are zero, so bf16/f32 rounding
     can never flip the >0 test).
   * Unanchored search seeds the anchored start closure at every
@@ -205,10 +205,9 @@ class DeviceBitsetNFA:
         self.G = G
         self.Gs = len(starts)
         self.has_looks = has_looks
-        # bf16 on the MXU (0/1 inputs with f32 accumulation are exact);
-        # CPU XLA lacks bf16 dot, so tests run the same math in f32
-        dt = jnp.bfloat16 if jax.default_backend() == "tpu" \
-            else jnp.float32
+        # 0/1 operands with f32 accumulation: exact at any matmul
+        # precision (TF32 or bf16 inputs round nothing here)
+        dt = jnp.float32
         self.dtype = dt
         self.lo = jnp.asarray(lo)
         self.hi = jnp.asarray(hi)
@@ -220,9 +219,9 @@ class DeviceBitsetNFA:
 
 
 def plan_bitset_geometry(n: int, S: int) -> Tuple[int, int]:
-    """(L, T): L lanes of T bytes.  Lane count balances MXU batch shape
-    (>=128 rows) against per-lane state memory L*S."""
-    from .count_scan import size_bucket
+    """(L, T): L lanes of T bytes.  Lane count balances the matmul batch
+    shape (>=128 rows) against per-lane state memory L*S."""
+    from .transducer import size_bucket
     nb = size_bucket(max(n, 1))
     L = 256
     while L > 8 and L * 64 > nb:

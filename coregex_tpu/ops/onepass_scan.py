@@ -98,10 +98,9 @@ def _onepass_window(comb, bounds, data, starts, ends,
         c, pos = xc
         oh_s = (st[:, None] == jax.lax.broadcasted_iota(
             jnp.int32, (1, S), 1)).astype(jnp.float32)          # [B, S]
-        # HIGHEST precision: TPU matmuls default to bf16 passes, which
-        # round integers above 256 — the 16-bit slot-mask channels came
-        # back corrupted on chip (caught by tests_tpu); exact f32 is
-        # required for the mask round-trip
+        # HIGHEST precision: the slot-mask channels carry 16-bit values,
+        # and a default-precision product (TF32 on the GPU) rounds
+        # integers above 2048; exact f32 keeps the mask round-trip
         rows = jnp.dot(oh_s, comb,
                        precision=jax.lax.Precision.HIGHEST,
                        preferred_element_type=jnp.float32)      # [B, 3C+4]

@@ -4,7 +4,7 @@ The reference optimizes "match one pattern against millions of short
 strings" with per-call engines plus anchored fast paths — a first-byte
 branch dispatch table (nfa/branch_dispatch.go:18-40) and a possible-first
 -byte set for O(1) anchored rejection (nfa/firstbytes.go:8-41).  Both are
-scalar-branch designs; the TPU-native form subsumes them: step the dense
+scalar-branch designs; the data-parallel form subsumes them: step the dense
 DFA over ALL rows in lockstep (state vector [B], one gather per column),
 so every row's first byte is "dispatched" by the same table lookup that
 rejects impossible rows (delta[start, c] == DEAD after one step — the

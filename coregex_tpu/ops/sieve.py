@@ -4,7 +4,7 @@ Generalizes the reference's Teddy fingerprints and DigitPrefilter
 (prefilter/teddy.go nibble masks, prefilter/digit.go): from the anchored
 DFA, compute for each offset j < depth the set of bytes that can possibly
 appear j bytes into a match.  A candidate start must satisfy ALL offset
-conditions — evaluated on TPU as pure shifted range-compares (no gathers),
+conditions — evaluated on device as pure shifted range-compares (no gathers),
 so sieving a corpus costs a few elementwise passes regardless of pattern.
 
 depth is capped at the pattern's minimum match length so positions are

@@ -5,7 +5,7 @@ reference appends (start, end) pairs to a CPU vector as its loop walks
 (/root/reference/meta/findall.go:176-283), a batch machine builds one
 mask of match STARTS and one of match ENDS — in the same fused
 cummax/shift style as the count kernels — and compacts both with the
-Mosaic stream-compaction kernel (ops/compact.py).  When each match
+stream compaction of ops/compact.py.  When each match
 contributes exactly one bit to each mask, in order, zipping the two
 compacted arrays IS the span list; everything stays device-resident
 (the span arrays never cross the host link unless the caller asks).
@@ -140,8 +140,8 @@ def line_span_masks(dev, lit: Tuple[int, ...], prefix: Tuple[int, ...],
     valid = cand & (idxs + k <= next_nl)
     if line_anchored and len(prefix):
         prefix_at = _memmem_mask(dev, prefix)
-        # previous byte via shift, NOT dev[idxs-1]: a corpus-sized gather
-        # runs at ~70 ns/element on TPU (measured: 3.4 s per 192 MB)
+        # previous byte via shift, NOT dev[idxs-1]: a shift is one
+        # contiguous pass, a corpus-sized gather is not
         prev_byte = jnp.concatenate(
             [jnp.zeros(1, dtype=dev.dtype), dev[:-1]])
         is_ls = (idxs == 0) | (prev_byte == np.uint8(10))

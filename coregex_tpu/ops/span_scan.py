@@ -1,10 +1,11 @@
-"""Forward span-event scan: the count kernel emitting flag-word streams.
+"""Forward span-event scan: the count transducer emitting flag-word
+streams.
 
 The count transducer (dfa/countdfa.py) linearizes Go's FindAll restart
-walk into one weighted DFA; round 5 extends its tables with per-
-transition FLAG / FIRST-FLAG event bits (valid when `spans_simple`).
-This module scans a corpus through those tables at count-kernel speed
-and emits, besides the match count:
+walk into one weighted DFA; its tables carry per-transition FLAG /
+FIRST-FLAG event bits (valid when `spans_simple`).  This module scans a
+corpus through those tables with the transducer kernel in "events" mode
+(ops/transducer.py) and emits, besides the match count:
 
   * flagw  — int32 words, bit p = "a candidate match END at position p"
   * firstw — subset marking each group's FIRST flag (group boundaries)
@@ -12,16 +13,11 @@ and emits, besides the match count:
 Downstream (meta/batch.py:_bidi_spans_dev) the flag events compact into
 a hit-sized stream; each group's last flag is a committed match end
 (plus the EOI kind at the scan's final state), and a reverse-anchored
-reset scan recovers the starts — the TPU re-expression of the
-reference's 2-pass bidirectional FindAll fast path
-(/root/reference/meta/findall.go:216-239).
+reset scan recovers the starts — the reference's 2-pass bidirectional
+FindAll fast path (meta/findall.go:216-239).
 
 Packing: value = delta*32 + (commits<<2 | first<<1 | flag); commits per
-transition are <= SPAN_EMIT_LIMIT = 7 whenever spans_simple, so the
-select tree is the count kernel's with 3 extra bit-ops per byte.  The
-kernel packs bit 0 / bit 1 into two word streams written once per 8
-tile steps (the flag_scan.py scheme) while bits 2+ accumulate into the
-lane counters.
+transition are <= SPAN_EMIT_LIMIT = 7 whenever spans_simple.
 """
 
 from __future__ import annotations
@@ -34,355 +30,56 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..dfa.countdfa import CountDFA, EOI_COMPLEX
-from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
-from .count_scan import (_byte_ctx, _impl_default, _make_word_tiles,
-                         corpus_word_tiles, plan_geometry)
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    HAVE_PALLAS = False
+from ..dfa.countdfa import CountDFA
+from ..dfa.dense import CTX_SOT
+from . import transducer as tx
+from .count_scan import guess_entries
 
 
 class DeviceSpanDFA:
-    """Span-event tables uploaded once: packed [S, NSEG] int32 with
-    value = delta*32 + (commits<<2 | first<<1 | flag), plus segment
-    boundaries, EOI commit/kind tables, row/column-merged twin for the
-    Mosaic select tree (the DeviceCountDFA layout, count_scan.py:60)."""
+    """Span-event tables uploaded once: the flat packed table with
+    value = delta*32 + (commits<<2 | first<<1 | flag), the byte -> class
+    map, and the EOI commit/kind tables."""
 
     def __init__(self, cd: CountDFA):
         if not cd.spans_simple or cd.flag_on is None:
             raise ValueError("span scan requires spans_simple tables")
         self.cd = cd
-        classes = cd.classes
-        bounds = [b for b in range(1, 256)
-                  if classes[b] != classes[b - 1]]
-        seg_starts = [0] + bounds
-        seg_cls = np.array([classes[b] for b in seg_starts],
-                           dtype=np.int64)
-        delta_seg = cd.delta[:, seg_cls].astype(np.int32)
-        emit5 = (cd.flag_on[:, seg_cls].astype(np.int32)
-                 | (cd.first_on[:, seg_cls].astype(np.int32) << 1)
-                 | (cd.emit[:, seg_cls].astype(np.int32) << 2))
-        packed = delta_seg * 32 + emit5
-        self.S = int(cd.delta.shape[0])
-        self.NSEG = len(seg_starts)
-        self.NB = len(bounds)
-        self.packed_host = packed
-        self.packed = jnp.asarray(packed)
-        self.bounds = jnp.asarray(np.asarray(bounds, dtype=np.int32))
+        self.S, self.C = (int(x) for x in cd.delta.shape)
+        emit5 = (cd.flag_on.astype(np.int32)
+                 | (cd.first_on.astype(np.int32) << 1)
+                 | (cd.emit.astype(np.int32) << 2))
+        packed = cd.delta.astype(np.int32) * 32 + emit5
+        self.table = jnp.asarray(packed.reshape(-1))
+        self.cmap = jnp.asarray(np.asarray(cd.classes, dtype=np.int32))
         self.starts = jnp.asarray(cd.starts, dtype=jnp.int32)
         self.eoi = jnp.asarray(cd.eoi_commits, dtype=jnp.int32)
         self.eoi_kind = jnp.asarray(cd.eoi_kind, dtype=jnp.int32)
-        col_ids: dict = {}
-        col_of = []
-        for c in range(self.NSEG):
-            key = tuple(packed[:, c])
-            col_of.append(col_ids.setdefault(key, len(col_ids)))
-        row_ids: dict = {}
-        row_of = []
-        for s in range(self.S):
-            key = tuple(packed[s])
-            row_of.append(row_ids.setdefault(key, len(row_ids)))
-        self.Cp = len(col_ids)
-        self.R = len(row_ids)
-        self.col_of = tuple(col_of)
-        self.row_of = tuple(row_of)
-        packed_rc = np.zeros((self.R, self.Cp), dtype=np.int32)
-        for s in range(self.S):
-            for c in range(self.NSEG):
-                packed_rc[row_of[s], col_of[c]] = packed[s, c]
-        self.packed_rc = jnp.asarray(packed_rc)
 
-    def tree_ops(self) -> int:
-        return self.NB + self.NSEG + self.S + self.R * (self.Cp + 1)
-
-
-# ---------------------------------------------------------------------------
-# Pallas kernel (count kernel + dual flag-word packing)
-# ---------------------------------------------------------------------------
-
-def _span_kernel(packed_ref, bounds_ref, entries_ref, offsets_ref,
-                 limits_ref, warm_ref, tiles_ref, flagw_ref, firstw_ref,
-                 counts_ref, exits_ref, sync_ref, state_scr, cnt_scr,
-                 wf_scr, wg_scr, *, S: int, NSEG: int, NB: int,
-                 Tt4: int, W4: int, col_of: tuple, row_of: tuple,
-                 R: int, Cp: int):
-    g = pl.program_id(0)
-
-    def step_bytes(word, s, cnt, live_of, emit: bool):
-        flags4 = None
-        first4 = None
-        for k in range(4):
-            b = (word >> (8 * k)) & 255
-            c = jnp.zeros_like(b)
-            for i in range(NB):
-                c = c + (b >= bounds_ref[i]).astype(jnp.int32)
-            col = jnp.zeros_like(c)
-            for ci in range(NSEG):
-                if col_of[ci]:
-                    col = jnp.where(c == ci, col_of[ci], col)
-            row = jnp.zeros_like(s)
-            for si in range(S):
-                if row_of[si]:
-                    row = jnp.where(s == si, row_of[si], row)
-            ceq = [col == cj for cj in range(Cp)]
-            val = jnp.zeros_like(s)
-            for ri in range(R):
-                rv = jnp.zeros_like(s)
-                for cj in range(Cp):
-                    rv = jnp.where(ceq[cj], packed_ref[ri, cj], rv)
-                val = jnp.where(row == ri, rv, val)
-            live = live_of(k)
-            if emit:
-                cnt = cnt + jnp.where(live, (val >> 2) & 7, 0)
-                fb = jnp.where(live, val & 1, 0)
-                gb = jnp.where(live, (val >> 1) & 1, 0)
-                flags4 = fb if flags4 is None else flags4 | (fb << k)
-                first4 = gb if first4 is None else first4 | (gb << k)
-            s = jnp.where(live, val >> 5, s)
-        return s, cnt, flags4, first4
-
-    @pl.when(g == 0)
-    def _():
-        s = entries_ref[:]
-        cnt_scr[:] = jnp.zeros_like(cnt_scr)
-        offs = offsets_ref[:]
-        for tw in range(W4):
-            w = warm_ref[tw]
-            s, _, _, _ = step_bytes(
-                w, s, None,
-                lambda k, tw=tw: (tw * 4 + k) >= offs, emit=False)
-        state_scr[:] = s
-        sync_ref[:] = s
-
-    def body(t, _):
-        w = tiles_ref[t]
-        s = state_scr[:]
-        cnt = cnt_scr[:]
-        base = (g * Tt4 + t) * 4
-        lim = limits_ref[:]
-        s, cnt, flags4, first4 = step_bytes(
-            w, s, cnt, lambda k: (base + k) < lim, emit=True)
-        state_scr[:] = s
-        cnt_scr[:] = cnt
-        sub = t % 8
-
-        @pl.when(sub == 0)
-        def _w0():
-            wf_scr[:] = flags4
-            wg_scr[:] = first4
-
-        @pl.when(sub != 0)
-        def _wk():
-            wf_scr[:] = wf_scr[:] | (flags4 << (sub * 4))
-            wg_scr[:] = wg_scr[:] | (first4 << (sub * 4))
-
-        @pl.when(sub == 7)
-        def _flush():
-            flagw_ref[t // 8] = wf_scr[:]
-            firstw_ref[t // 8] = wg_scr[:]
-
-        return 0
-
-    jax.lax.fori_loop(0, Tt4, body, 0, unroll=1)
-    counts_ref[:] = cnt_scr[:]
-    exits_ref[:] = state_scr[:]
-
-
-def _pallas_span_once(packed, bounds, tiles, warm, entries, offsets,
-                      limits, S: int, NSEG: int, NB: int, T4: int,
-                      Tt4: int, W4: int, Lc: int, col_of: tuple,
-                      row_of: tuple, R: int, Cp: int,
-                      interpret: bool = False):
-    n_tiles = T4 // Tt4
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(n_tiles,),
-        scratch_shapes=[
-            pltpu.VMEM((8, Lc), jnp.int32),
-            pltpu.VMEM((8, Lc), jnp.int32),
-            pltpu.VMEM((8, Lc), jnp.int32),
-            pltpu.VMEM((8, Lc), jnp.int32),
-        ],
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # packed [R, Cp]
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # bounds [NB]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # entries [8, Lc]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # offsets
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # limits
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # warm [W4, 8, Lc]
-            pl.BlockSpec((Tt4, 8, Lc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),   # tiles
-        ],
-        out_specs=[
-            pl.BlockSpec((Tt4 // 8, 8, Lc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),   # flag words
-            pl.BlockSpec((Tt4 // 8, 8, Lc), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),   # first words
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # counts
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # exits
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # sync
-        ],
-    )
-    kern = functools.partial(_span_kernel, S=S, NSEG=NSEG, NB=NB,
-                             Tt4=Tt4, W4=W4, col_of=col_of,
-                             row_of=row_of, R=R, Cp=Cp)
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((T4 // 8, 8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((T4 // 8, 8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((8, Lc), jnp.int32),
-            jax.ShapeDtypeStruct((8, Lc), jnp.int32),
-        ),
-        interpret=interpret,
-    )(packed, bounds, entries, offsets, limits, warm, tiles)
-
-
-# ---------------------------------------------------------------------------
-# Full scan: warmup guess + boundary-repair fixpoint, one jit
-# ---------------------------------------------------------------------------
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("L", "T", "W", "S", "NSEG", "NB", "Tt4", "Lc",
-                     "impl", "col_of", "row_of", "R", "Cp",
-                     "max_repair", "interpret"))
-def _span_full(packed, packed_rc, bounds, starts_tbl, eoi, eoi_kind,
-               data_u8, tiles, n,
-               L: int, T: int, W: int, S: int, NSEG: int, NB: int,
-               Tt4: int, Lc: int, impl: str, col_of: tuple = (),
-               row_of: tuple = (), R: int = 0, Cp: int = 0,
-               max_repair: int = 4, interpret: bool = False):
+    jax.jit, static_argnames=("L", "T", "W", "C", "impl", "max_repair"))
+def _span_full(table, cmap, starts_tbl, eoi, eoi_kind, data_u8, tiles, n,
+               L: int, T: int, W: int, C: int, impl: str,
+               max_repair: int = 4):
     """Returns (flag words [L*T/32] position-major with bits >= n
     masked, first words likewise, event count, total match count incl.
     EOI, eoi kind at the final state, converged)."""
-    T4, W4 = T // 4, W // 4
     n = jnp.int32(n)
     sot = starts_tbl[CTX_SOT]
-    lane_ids = jnp.arange(L, dtype=jnp.int32)
-
-    tail = tiles[T4 - W4:]
-    warm = jnp.roll(tail.reshape(W4, L), 1, axis=1).reshape(
-        W4, 8, Lc)
-    guess_pos = lane_ids * T - W - 1
-    prev_b = data_u8[jnp.clip(guess_pos, 0, data_u8.shape[0] - 1)
-                     ].astype(jnp.int32)
-    ctx = _byte_ctx(prev_b)
-    guessed = jnp.where(
-        guess_pos < 0, sot,
-        jnp.where(ctx == CTX_WORD, starts_tbl[CTX_WORD],
-                  jnp.where(ctx == CTX_NL, starts_tbl[CTX_NL],
-                            starts_tbl[CTX_OTHER])))
-    entries0 = guessed.at[0].set(sot)
-    offsets0 = jnp.zeros((L,), jnp.int32).at[0].set(W)
-    limits = jnp.clip(n - lane_ids * T, 0, T)
-
-    if impl == "pallas":
-        def scan_once(entries, offsets):
-            fw, gw, cnts, exits, sync = _pallas_span_once(
-                packed_rc, bounds, tiles, warm, entries.reshape(8, Lc),
-                offsets.reshape(8, Lc), limits.reshape(8, Lc), S=S,
-                NSEG=NSEG, NB=NB, T4=T4, Tt4=Tt4, W4=W4, Lc=Lc,
-                col_of=col_of, row_of=row_of, R=R, Cp=Cp,
-                interpret=interpret)
-            return fw, gw, cnts.reshape(L), exits.reshape(L), \
-                sync.reshape(L)
-    else:
-        delta_t = packed >> 5
-        emit_t = packed & 31
-
-        def classify(b):
-            return jnp.searchsorted(bounds, b, side="right").astype(
-                jnp.int32)
-
-        def scan_once(entries, offsets):
-            def body(carry, xc):
-                s, cnt = carry
-                w, is_warm, widx = xc
-                f4 = jnp.zeros_like(s)
-                g4 = jnp.zeros_like(s)
-                for k in range(4):
-                    b = (w >> (8 * k)) & 255
-                    c = classify(b)
-                    live = jnp.where(
-                        is_warm, (widx * 4 + k) >= offsets,
-                        (widx * 4 + k) < limits)
-                    val = packed[s, c]
-                    lv = live & ~is_warm
-                    cnt = cnt + jnp.where(lv, (val >> 2) & 7, 0)
-                    f4 = f4 | (jnp.where(lv, val & 1, 0) << k)
-                    g4 = g4 | (jnp.where(lv, (val >> 1) & 1, 0) << k)
-                    s = jnp.where(live, val >> 5, s)
-                return (s, cnt), (f4, g4)
-
-            warm_flat = warm.reshape(W4, L)
-            main_flat = tiles.reshape(T4, L)
-            xs_w = (warm_flat, jnp.ones(W4, bool),
-                    jnp.arange(W4, dtype=jnp.int32))
-            xs_m = (main_flat, jnp.zeros(T4, bool),
-                    jnp.arange(T4, dtype=jnp.int32))
-            cnt0 = jnp.zeros((L,), jnp.int32)
-            (s1, _), _ = jax.lax.scan(body, (entries, cnt0), xs_w)
-            (s2, cnt), (f4s, g4s) = jax.lax.scan(body, (s1, cnt0),
-                                                 xs_m)
-            sh = (jnp.arange(8, dtype=jnp.int32) * 4)[None, :, None]
-
-            def to_words(x4):
-                x8 = x4.reshape(T4 // 8, 8, L)
-                return (x8 << sh).sum(axis=1,
-                                      dtype=jnp.int32).reshape(
-                    T4 // 8, 8, Lc)
-
-            return to_words(f4s), to_words(g4s), cnt, s2, s1
-
-    fw0, gw0, cnts0, exits0, sync0 = scan_once(entries0, offsets0)
-    real = (lane_ids * T) < n
-
-    def want_of(exits):
-        return jnp.concatenate(
-            [sot[None].astype(jnp.int32), exits[:-1]])
-
-    def cond(st):
-        k, fw, gw, cnts, exits, sync = st
-        return (k < max_repair) & jnp.any(
-            real & (want_of(exits) != sync))
-
-    def rep(st):
-        k, fw, gw, cnts, exits, sync = st
-        offs = jnp.full((L,), W, jnp.int32)
-        f2, g2, c2, e2, sy2 = scan_once(want_of(exits), offs)
-        return (k + 1, f2, g2, c2, e2, sy2)
-
-    k, fw, gw, cnts, exits, sync = jax.lax.while_loop(
-        cond, rep, (jnp.int32(0), fw0, gw0, cnts0, exits0, sync0))
-    converged = ~jnp.any(real & (want_of(exits) != sync))
-
+    entries0 = guess_entries(starts_tbl, data_u8, L, T, W).at[0].set(sot)
+    real = (jnp.arange(L, dtype=jnp.int32) * T) < n
+    out, converged = tx.stitch(
+        impl, "events", table, cmap, entries0, tx.first_lane_offsets(L, W),
+        tx.lane_limits(n, L, T), tx.warm_window(tiles, W), tiles, C, sot,
+        real, W, max_repair=max_repair)
+    fw, gw, cnts, exits, _ = out
     lane_n = jnp.where(n % T == 0, n // T - 1, n // T)
     state_n = exits[jnp.clip(lane_n, 0, L - 1)]
     total = cnts.sum(dtype=jnp.int32) + eoi[state_n, CTX_SOT]
     kind = eoi_kind[state_n, CTX_SOT]
-
-    def to_global(w):
-        wg_ = jnp.transpose(w, (1, 2, 0)).reshape(-1)
-        nw = wg_.shape[0]
-        base = jnp.arange(nw, dtype=jnp.int32) * 32
-        full = base + 32 <= n
-        partial_bits = jnp.clip(n - base, 0, 32)
-        pmask = jnp.where(
-            partial_bits >= 32, jnp.int32(-1),
-            (jnp.left_shift(jnp.int32(1),
-                            jnp.minimum(partial_bits, 31)) - 1))
-        return jnp.where(full, wg_, wg_ & pmask)
-
-    fwg = to_global(fw)
-    gwg = to_global(gw)
+    fwg = tx.positions_major(fw, n)
+    gwg = tx.positions_major(gw, n)
     n_events = jax.lax.population_count(fwg).sum(dtype=jnp.int32)
     return fwg, gwg, n_events, total, kind, converged
 
@@ -394,29 +91,17 @@ class SpanScanner:
     match count, eoi kind, converged) — all device, one fused dispatch
     over the cached corpus word tiles (shared with CountScanner)."""
 
-    def __init__(self, cd: CountDFA, impl: Optional[str] = None,
-                 interpret: bool = False):
+    def __init__(self, cd: CountDFA, impl: Optional[str] = None):
         self.dsd = DeviceSpanDFA(cd)
         self.cd = cd
-        self.impl = impl or _impl_default()
-        self.interpret = interpret
+        self.impl = impl or tx.default_impl()
 
     def scan(self, data_dev: jnp.ndarray,
-             geometry: Optional[Tuple[int, int, int, int]] = None):
+             geometry: Optional[Tuple[int, int, int]] = None):
         n = int(data_dev.shape[0])
-        L, T, W, Lc = geometry or plan_geometry(n)
-        # one flag word per 8 tile steps: Tt4 must divide T4 and be a
-        # multiple of 8
-        Tt4 = min(64, max(8, (T // 4) // 4))
-        while (T // 4) % Tt4:
-            Tt4 //= 2
-        if Tt4 % 8:
-            Tt4 = 8
+        L, T, W = geometry or tx.plan_geometry(n)
         d = self.dsd
-        tiles = corpus_word_tiles(data_dev, L, T)
+        tiles = tx.corpus_word_tiles(data_dev, L, T)
         return _span_full(
-            d.packed, d.packed_rc, d.bounds, d.starts, d.eoi,
-            d.eoi_kind, data_dev, tiles, jnp.int32(n), L=L, T=T, W=W,
-            S=d.S, NSEG=d.NSEG, NB=d.NB, Tt4=Tt4, Lc=Lc,
-            impl=self.impl, col_of=d.col_of, row_of=d.row_of, R=d.R,
-            Cp=d.Cp, interpret=self.interpret)
+            d.table, d.cmap, d.starts, d.eoi, d.eoi_kind, data_dev, tiles,
+            jnp.int32(n), L=L, T=T, W=W, C=d.C, impl=self.impl)

@@ -39,7 +39,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed (idempotent).  Returns True when
     running multi-process after the call.  With no arguments, relies on
-    the environment (TPU pod metadata / JAX_COORDINATOR_ADDRESS etc.);
+    the environment (cluster metadata / JAX_COORDINATOR_ADDRESS etc.);
     single-process environments return False without error."""
     # do not touch jax.process_count()/devices() first: they initialize
     # the XLA backend, after which distributed.initialize refuses to run

@@ -7,7 +7,7 @@ tables replicate, and boundary stitching is *exact* via a two-phase scan:
   phase 1 — every device computes its shard's full state-transfer function
             F: S -> S by scanning an [S]-vector of states (enumerative,
             the blockwise transition-function composition of SURVEY §2.9);
-  phase 2 — transfer functions all_gather over ICI, each device composes
+  phase 2 — transfer functions all_gather across devices, each device composes
             its true entry state by folding predecessors' functions, then
             rescans its shard from the exact entry, counting match flags;
             counts reduce with psum.
@@ -24,10 +24,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..dfa.dense import CTX_SOT, DEAD

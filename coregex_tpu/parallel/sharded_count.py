@@ -1,216 +1,171 @@
-"""Multi-chip exact Go-count: the CountDFA transducer under shard_map.
+"""Multi-device exact Go count: the one-card count transducer per shard.
 
 The count transducer (dfa/countdfa.py) turns the whole FindAll restart
 loop into one weighted DFA, so the exact Go match count distributes the
-same way a plain DFA scan does (parallel/shard.py two-phase scheme):
+way the lanes inside one card already do (ops/transducer.py), one level
+up:
 
-  phase 1 — each device scans its corpus shard once, computing BOTH the
-            shard's state-transfer function F: S -> S AND the per-entry-
-            state emission totals E: S -> int (how many matches the shard
-            commits if entered in state s);
-  phase 2 — transfer functions all_gather over ICI; each device folds its
-            predecessors' F to find its true entry state, selects E[entry],
-            and the counts psum.  One collective, no rescan: because
-            phase 1 enumerates ALL S entry states, the second pass of the
-            plain-DFA scheme collapses into a table lookup.
+  guess  — each device holds one contiguous shard; its entry state is
+           guessed by scanning a W-byte halo (the previous shard's tail,
+           passed with one `ppermute`) from a context start state;
+  scan   — each device counts its shard with the one-card transducer
+           (count_scan.count_lanes), giving (count, exit state);
+  repair — (entry, count, exit) all-gather; a shard whose guessed entry
+           differs from the previous shard's exit rescans from that
+           exit, until the chain holds (at most one round per shard,
+           usually none).  The per-shard counts sum on the host.
 
-The tail of a corpus not divisible by the mesh size is finished on host
-from the folded final state (a < ndev-byte walk), so arbitrary lengths are
-exact.  This is the sequence-parallel path Engine.count takes when more
-than one device is visible (SURVEY.md §2.9).
+This is the sequence-parallel path Engine.count takes when more than
+one device is visible (SURVEY.md §2.9).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import numpy as np
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax import shard_map
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
-from jax.sharding import Mesh, PartitionSpec as P
-
-from ..dfa.countdfa import CountDFA
 from ..dfa.dense import CTX_SOT
-
-
-class Phase1TooWide(Exception):
-    """Phase 1 enumerates all S entry states (S gathers per byte); past
-    this width the enumeration costs more than it saves vs a plain
-    single-device scan (round-3 verdict weak item 6)."""
-
-
-# Phase-1 cost is ~S/unroll gathers per byte vs 1 for the plain scan;
-# measured on the CPU mesh the break-even against a single-device scan
-# sits in the hundreds of states (see docs/SCALING.md).
-PHASE1_STATE_LIMIT = 512
+from ..ops import transducer as tx
+from ..ops.count_scan import _byte_ctx, count_lanes
 
 
 class ShardedGoCount:
-    """Per-(pattern, mesh) compiled sharded counter."""
+    """Per-(count scanner, mesh) sharded counter; one compiled program
+    per shard-length bucket."""
 
-    def __init__(self, cd: CountDFA, mesh: Mesh, axis: str = "data",
-                 state_limit: int = PHASE1_STATE_LIMIT):
-        if cd.num_states > state_limit:
-            raise Phase1TooWide(
-                f"{cd.num_states} states > {state_limit}")
-        self.cd = cd
+    def __init__(self, sc, mesh: Mesh, axis: str = "data"):
+        self.sc = sc
+        self.cd = sc.cd
         self.mesh = mesh
         self.axis = axis
         self.ndev = int(mesh.shape[axis])
-        S = cd.num_states
-        delta = jnp.asarray(cd.delta.astype(np.int32))
-        emit = jnp.asarray(cd.emit.astype(np.int32))
-        classes = jnp.asarray(cd.classes.astype(np.int32))
-        ndev = self.ndev
+        self._fns = {}
+        self._corpus = None  # (fingerprint, SL, sharded device array)
 
-        def body(data_shard, delta, emit, classes):
+    def _build(self, SL: int):
+        d = self.sc.dcd
+        impl = self.sc.impl
+        axis, ndev = self.axis, self.ndev
+        L, T, W = tx.plan_geometry(SL)
+        C = d.C
+        sot = jnp.int32(self.cd.starts[CTX_SOT])
+
+        def halo_guess(starts_tbl, table, cmap, halo):
+            """Entry guess at the shard start: the start state for the
+            context of the halo's first byte, stepped over the rest."""
+            ctx = _byte_ctx(halo[0].astype(jnp.int32))
+            s0 = starts_tbl[ctx]
+
+            def step(s, b):
+                return table[s * C + cmap[b]] >> 5, None
+
+            s, _ = jax.lax.scan(step, s0, halo[1:].astype(jnp.int32))
+            return s
+
+        def body(shard, n_shard, table, cmap, starts_tbl):
             my = jax.lax.axis_index(axis)
-            cls = classes[data_shard]
+            n_my = n_shard[0]
+            halo = jax.lax.ppermute(
+                shard[SL - W:], axis,
+                perm=[(i, i + 1) for i in range(ndev - 1)])
+            entry = jnp.where(my == 0, sot,
+                              halo_guess(starts_tbl, table, cmap, halo))
+            tiles = tx.make_word_tiles(shard, L, T // 4)
 
-            # phase 1: joint (transfer fn, per-entry emission totals)
-            def step(carry, c):
-                F, E = carry
-                E = E + emit[F, c]
-                return (delta[F, c], E), None
+            def scan_from(first):
+                return count_lanes(table, cmap, starts_tbl, shard, tiles,
+                                   n_my, first, L, T, W, C, impl)
 
-            F0 = jnp.arange(S, dtype=jnp.int32)
-            E0 = jnp.zeros((S,), jnp.int32)
-            (F, E), _ = jax.lax.scan(step, (F0, E0), cls, unroll=4)
-            Fs = jax.lax.all_gather(F, axis)          # [D, S]
-            Es = jax.lax.all_gather(E, axis)          # [D, S]
+            cnt, ext, conv = scan_from(entry)
 
-            # phase 2: fold predecessors' transfer functions
-            sot = jnp.int32(self.cd.starts[CTX_SOT])
+            def gather(*xs):
+                return [jax.lax.all_gather(x, axis) for x in xs]
 
-            def fold(d, e):
-                return jnp.where(d < my, Fs[d][e], e)
-            entry = jax.lax.fori_loop(0, ndev, fold, sot)
-            my_count = E[entry]
-            # final state of the whole (sharded) prefix, for the host tail
-            fin = jax.lax.fori_loop(0, ndev, lambda d, e: Fs[d][e], sot)
-            total = jax.lax.psum(my_count, axis)
-            return total[None], fin[None]
+            ents, cnts, exts, convs = gather(entry, cnt, ext, conv)
+            real = jax.lax.all_gather(n_my, axis) > 0
+
+            def bad(ents, exts):
+                want = jnp.concatenate([sot[None], exts[:-1]])
+                return real & (ents != want), want
+
+            def cond(st):
+                k, ents, cnts, exts, convs = st
+                return (k < ndev) & jnp.any(bad(ents, exts)[0])
+
+            def rep(st):
+                k, ents, cnts, exts, convs = st
+                mism, want = bad(ents, exts)
+                mine = mism[my]
+                first = jnp.where(mine, want[my], ents[my])
+                c2, e2, v2 = jax.lax.cond(
+                    mine, scan_from,
+                    lambda f: (cnts[my], exts[my], convs[my]), first)
+                return (k + 1, *gather(first, c2, e2, v2))
+
+            _, ents, cnts, exts, convs = jax.lax.while_loop(
+                cond, rep, (jnp.int32(0), ents, cnts, exts, convs))
+            ok = jnp.all(convs) & ~jnp.any(bad(ents, exts)[0])
+            return cnts, exts, ok
 
         smapped = shard_map(
-            body, mesh=mesh,
-            in_specs=(P(axis), P(), P(), P()),
-            out_specs=(P(axis), P(axis)),
-            check_vma=False)
+            body, mesh=self.mesh,
+            in_specs=(P(axis), P(axis), P(), P(), P()),
+            out_specs=(P(), P(), P()), check_vma=False)
+        return jax.jit(smapped)
 
-        @jax.jit
-        def run(data):
-            tot, fin = smapped(data, delta, emit, classes)
-            return tot[0], fin[0]
+    def _put(self, data: np.ndarray, SL: int):
+        """Host corpus -> [ndev * SL] array with shard d on device d
+        (only the last real shard is padded, on the host).  The last
+        corpus stays cached, keyed like utils/corpus_cache.device_corpus
+        (length + sampled fingerprint), so repeat counts skip the
+        upload."""
+        from ..utils.corpus_cache import _fingerprint
+        fp = _fingerprint(data)
+        if self._corpus is not None and self._corpus[:2] == (fp, SL):
+            return self._corpus[2]
+        self._corpus = None
+        n = len(data)
 
-        self._run = run
+        def shard_of(idx):
+            s = idx[0].start or 0
+            part = data[s:min(n, s + SL)]
+            if len(part) < SL:
+                part = np.concatenate(
+                    [part, np.zeros(SL - len(part), np.uint8)])
+            return part
 
-    def count(self, data: np.ndarray) -> int:
-        """Exact Go match count of `data` (host uint8 array)."""
+        sharding = NamedSharding(self.mesh, P(self.axis))
+        arr = jax.make_array_from_callback((self.ndev * SL,), sharding,
+                                           shard_of)
+        self._corpus = (fp, SL, arr)
+        return arr
+
+    def count(self, data: np.ndarray):
+        """Exact Go match count of `data` (host uint8 array), or None
+        when lane or shard repair did not converge."""
         n = len(data)
         cd = self.cd
-        if n == 0:
-            return int(cd.eoi_commits[int(cd.starts[CTX_SOT]), CTX_SOT])
-        cut = (n // self.ndev) * self.ndev
-        if cut == 0:
-            return cd.count_scan(data)
-        total, fin = jax.device_get(self._run(jnp.asarray(data[:cut])))
-        total, s = int(total), int(fin)
-        # host tail: < ndev bytes from the exact folded state
-        for c in cd.classes[np.asarray(data[cut:], dtype=np.uint8)]:
-            total += int(cd.emit[s, c])
-            s = cd.delta[s, c]
-        return total + int(cd.eoi_commits[s, CTX_SOT])
-
-
-class ShardedPhaseProbe:
-    """Per-phase wall-time measurement for the sharded count: phase 1
-    (local scan + per-entry emissions), the all_gather collective, and
-    phase 2 (transfer-function fold + psum), each as its own jitted
-    piece so the shares can be timed separately.  Feeds the SCALING.md
-    efficiency model (round-3 verdict weak item 6): predicted N-host
-    efficiency ~= t_scan / (t_scan + t_gather * dcn_penalty + t_fold)
-    with t_gather scaled by the DCN/ICI bandwidth ratio when shards
-    cross hosts."""
-
-    def __init__(self, cd: CountDFA, mesh: Mesh, axis: str = "data"):
-        self.cd = cd
-        self.mesh = mesh
-        self.axis = axis
-        self.ndev = int(mesh.shape[axis])
-        S = cd.num_states
-        delta = jnp.asarray(cd.delta.astype(np.int32))
-        emit = jnp.asarray(cd.emit.astype(np.int32))
-        classes = jnp.asarray(cd.classes.astype(np.int32))
-        ndev = self.ndev
         sot = int(cd.starts[CTX_SOT])
-
-        def p1(data_shard, delta, emit, classes):
-            cls = classes[data_shard]
-
-            def step(carry, c):
-                F, E = carry
-                E = E + emit[F, c]
-                return (delta[F, c], E), None
-
-            F0 = jnp.arange(S, dtype=jnp.int32)
-            E0 = jnp.zeros((S,), jnp.int32)
-            (F, E), _ = jax.lax.scan(step, (F0, E0), cls, unroll=4)
-            return F, E
-
-        def pg(F, E):
-            return (jax.lax.all_gather(F, axis),
-                    jax.lax.all_gather(E, axis))
-
-        self._p1 = jax.jit(shard_map(
-            p1, mesh=mesh, in_specs=(P(axis), P(), P(), P()),
-            out_specs=(P(axis), P(axis)), check_vma=False))
-        self._pg = jax.jit(shard_map(
-            pg, mesh=mesh, in_specs=(P(axis), P(axis)),
-            out_specs=(P(), P()), check_vma=False))
-
-        def p2_wrap(Fs, Es):
-            def body(FsM, EsM):
-                my = jax.lax.axis_index(axis)
-                E = EsM[my]
-
-                def fold(d, e):
-                    return jnp.where(d < my, FsM[d][e], e)
-                entry = jax.lax.fori_loop(0, ndev, fold,
-                                          jnp.int32(sot))
-                return jax.lax.psum(E[entry], axis)[None]
-            return shard_map(
-                body, mesh=mesh, in_specs=(P(), P()),
-                out_specs=P(axis), check_vma=False)(Fs, Es)
-
-        self._p2 = jax.jit(p2_wrap)
-        self._tables = (delta, emit, classes)
-
-    def measure(self, data: np.ndarray, reps: int = 3):
-        """{phase: best seconds} for one corpus (cut to a multiple of
-        the mesh)."""
-        import time
-        cut = (len(data) // self.ndev) * self.ndev
-        dev = jnp.asarray(data[:cut])
-        delta, emit, classes = self._tables
-
-        def timed(fn, *args):
-            out = fn(*args)
-            jax.block_until_ready(out)
-            best = float("inf")
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                out = fn(*args)
-                jax.block_until_ready(out)
-                best = min(best, time.perf_counter() - t0)
-            return best, out
-
-        t1, (F, E) = timed(self._p1, dev, delta, emit, classes)
-        tg, (Fs, Es) = timed(self._pg, F, E)
-        t2, tot = timed(self._p2, Fs, Es)
-        return {"phase1_scan": t1, "collective": tg, "phase2_fold": t2,
-                "count": int(np.asarray(tot)[0])}
+        if n == 0:
+            return int(cd.eoi_commits[sot, CTX_SOT])
+        SL = tx.size_bucket(-(-n // self.ndev))
+        SL = -(-SL // 64) * 64
+        fn = self._fns.get(SL)
+        if fn is None:
+            fn = self._fns[SL] = self._build(SL)
+        n_shard = np.clip(n - np.arange(self.ndev, dtype=np.int64) * SL,
+                          0, SL).astype(np.int32)
+        d = self.sc.dcd
+        cnts, exts, ok = jax.device_get(fn(
+            self._put(data, SL),
+            jax.device_put(n_shard, NamedSharding(self.mesh, P(self.axis))),
+            d.table, d.cmap, d.starts))
+        if not bool(ok):
+            return None
+        last = int(np.flatnonzero(n_shard > 0)[-1])
+        total = int(np.asarray(cnts, dtype=np.int64)[n_shard > 0].sum())
+        return total + int(cd.eoi_commits[int(exts[last]), CTX_SOT])

@@ -5,10 +5,10 @@ gains nothing — and concurrent XLA computations (a shard_map collective
 racing a span assembly) have crashed this runtime under thread stress.
 Every device entry point serializes on the lock FOR ITS BACKEND; host
 paths (PikeVM, backtracker) stay concurrent, and programs driving two
-distinct jax backends (e.g. a TPU client plus a CPU client) get one
+distinct jax backends (e.g. a GPU client plus a CPU client) get one
 lock each rather than a module-global bottleneck.  The reference is
 embarrassingly concurrent by design (meta/engine.go:126-156); this is
-the TPU-runtime-safety analogue, scoped as narrowly as the observed
+the device-runtime-safety analogue, scoped as narrowly as the observed
 failure allows.
 
 Reentrant because pipelines call each other (find_all -> find_first).

@@ -1,5 +1,5 @@
 """Batch (kernel) engine vs host engine: span-exact equivalence per
-strategy on synthetic corpora (the TPU analogue of the reference's
+strategy on synthetic corpora (the device analogue of the reference's
 cross-strategy correctness matrices, meta/reverse_strategies_test.go)."""
 
 import numpy as np

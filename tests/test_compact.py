@@ -1,16 +1,14 @@
-"""Mosaic stream-compaction kernel (ops/compact.py): positions of set
-bits via MXU triangular-matmul cumsum + collision-free binary-weighted
-shift routing.  CPU suite runs the kernel in pallas interpret mode plus
-the XLA fallback; the TPU tier covers the compiled kernel."""
+"""Stream compaction (ops/compact.py): positions of set entries via a
+cumsum rank and one unique-index scatter, against numpy flatnonzero."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from coregex_tpu.ops.compact import (CH, _compact_call, _compact_xla_jit,
-                                     compact_positions)
+from coregex_tpu.ops.compact import _compact_xla_jit, compact_positions
+
+CH = 1 << 14  # a block-sized stride for the test shapes
 
 
 def _check(h, cap, out, cnt):
@@ -32,24 +30,33 @@ def test_kernel_interpret_vs_flatnonzero(blocks, dens):
     n = blocks * CH
     h = (rng.random(n) < dens).astype(np.int8)
     cap = 1 << max(4, int(h.sum()).bit_length())
-    out, cnt = _compact_call(jnp.asarray(h), cap, interpret=True)
+    out, cnt = _compact_xla_jit(jnp.asarray(h), cap)
     _check(h, cap, out, cnt)
 
 
 def test_kernel_interpret_adversarial_blocks():
-    """Block seams: carries of every length cross DMA boundaries."""
-    rng = np.random.default_rng(9)
+    """Runs of every shape and a cap smaller than the hit count."""
     n = 5 * CH
     h = np.zeros(n, dtype=np.int8)
-    # block 0: 1 hit (carry len 1); block 1: 127 hits (carry 0 mod 128);
-    # block 2: dense run; block 3: empty; block 4: tail hits
     h[CH - 1] = 1
     h[CH:CH + 127] = 1
     h[2 * CH + 5:2 * CH + 7000] = 1
     h[5 * CH - 3:] = 1
     cap = 1 << int(h.sum()).bit_length()
-    out, cnt = _compact_call(jnp.asarray(h), cap, interpret=True)
+    out, cnt = _compact_xla_jit(jnp.asarray(h), cap)
     _check(h, cap, out, cnt)
+    out, cnt = _compact_xla_jit(jnp.asarray(h), 64)  # truncated
+    _check(h, 64, out, cnt)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.bool_, np.int32])
+@pytest.mark.parametrize("dens", [0.0, 0.01, 0.5, 1.0])
+def test_compact_positions_densities(dtype, dens):
+    rng = np.random.default_rng(int(dens * 1000) + 7)
+    h = (rng.random(3 * CH + 5) < dens).astype(dtype)
+    cap = 1 << max(4, int((h != 0).sum()).bit_length())
+    out, cnt = compact_positions(jnp.asarray(h), cap)
+    _check(h != 0, cap, out, cnt)
 
 
 def test_xla_fallback_and_dispatch():

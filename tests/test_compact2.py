@@ -1,6 +1,5 @@
 """Property tests for the payload compaction kernel + sparse chain
-(ops/compact2.py) against numpy flatnonzero, on the interpret-mode
-Mosaic path and the XLA fallback path."""
+(ops/compact2.py) against numpy flatnonzero."""
 
 import numpy as np
 import pytest
@@ -28,8 +27,7 @@ def test_compact_pay_interpret(dens, npay):
     exp = _ref(mask)
     cap = max(16, len(exp) + 5)
     out = compact_pay(jnp.asarray(mask),
-                      [jnp.asarray(p) for p in pays], cap,
-                      interpret=True)
+                      [jnp.asarray(p) for p in pays], cap)
     pos, rest = out[0], out[1:]
     pvs, cnt, ok = rest[:npay], rest[npay], rest[npay + 1]
     pos, cnt, ok = (np.asarray(jax.device_get(x))
@@ -62,7 +60,7 @@ def test_compact_pay_overflow_flag():
     mask = (rng.random(n) < 0.2)
     exp = _ref(mask)
     cap = 128  # far under the true count
-    out = compact_pay(jnp.asarray(mask), (), cap, interpret=True)
+    out = compact_pay(jnp.asarray(mask), (), cap)
     pos, cnt, ok = out
     assert not bool(jax.device_get(ok))
 
@@ -77,8 +75,7 @@ def test_sparse_positions(dens):
         mask[c:c + 8] = True
     exp = _ref(mask)
     cap = max(16, len(exp) + 3)
-    pos, cnt, ok = sparse_positions(jnp.asarray(mask), cap,
-                                    interpret=True)
+    pos, cnt, ok = sparse_positions(jnp.asarray(mask), cap)
     pos, cnt, ok = (np.asarray(jax.device_get(x))
                     for x in (pos, cnt, ok))
     assert bool(ok)
@@ -92,8 +89,7 @@ def test_sparse_positions_cap_exceeded():
     n = 256 * 128 * 4 * 4
     mask = (rng.random(n) < 0.05)
     exp = _ref(mask)
-    pos, cnt, ok = sparse_positions(jnp.asarray(mask), len(exp) // 2,
-                                    interpret=True)
+    pos, cnt, ok = sparse_positions(jnp.asarray(mask), len(exp) // 2)
     assert not bool(jax.device_get(ok))
 
 
@@ -114,7 +110,7 @@ def test_sparse_events_words(K):
         exp_kind |= (m[exp_pos].astype(np.int32) << kk)
     cap = max(16, len(exp_pos) + 7)
     pos, kind, cnt, ok = sparse_events_words(
-        [jnp.asarray(w) for w in words], n, cap, interpret=True)
+        [jnp.asarray(w) for w in words], n, cap)
     pos, kind, cnt, ok = (np.asarray(jax.device_get(x))
                           for x in (pos, kind, cnt, ok))
     assert bool(ok)
@@ -140,8 +136,7 @@ def test_sparse_chain_payloads(P):
     exp = np.flatnonzero(mask)
     cap = max(16, len(exp) + 9)
     out = sparse_chain_payloads(jnp.asarray(words),
-                                [jnp.asarray(p) for p in pays], n, cap,
-                                interpret=True)
+                                [jnp.asarray(p) for p in pays], n, cap)
     pos = np.asarray(jax.device_get(out[0]))
     cnt = int(jax.device_get(out[1 + P]))
     ok = bool(jax.device_get(out[2 + P]))
@@ -189,7 +184,7 @@ def test_positions_auto_routes():
     for hint in (len(exp), None, n // 2):
         pos, cnt, ok = positions_auto(jnp.asarray(mask),
                                       max(16, len(exp) + 8),
-                                      nhits_hint=hint, interpret=True)
+                                      nhits_hint=hint)
         assert bool(jax.device_get(ok))
         assert int(jax.device_get(cnt)) == len(exp)
         assert (np.asarray(jax.device_get(pos))[:len(exp)] == exp).all()

@@ -1,4 +1,4 @@
-"""Conformance tables — the TPU-build analogue of the reference's
+"""Conformance tables — the accelerator-build analogue of the reference's
 stdlib_compat_test.go (its adaptation of Go stdlib's find_test.go tables,
 SURVEY.md §4.1): a broad pattern corpus organized by construct family,
 swept over a shared text corpus across find / find_all / submatch /

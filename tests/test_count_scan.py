@@ -1,8 +1,8 @@
 """Device count-scan kernels vs the CountDFA host oracle.
 
-Runs on the CPU backend: the gather impl directly, and the pallas kernel
-in interpreter mode on small inputs.  Small T values force many lane
-boundaries so the warmup/repair stitching is exercised hard.
+Runs on the CPU backend: the plain XLA scan directly, and the Triton
+transducer kernel in interpreter mode on small inputs.  Small lanes force
+many lane boundaries so the warmup/repair stitching is exercised hard.
 """
 
 import random
@@ -14,7 +14,8 @@ import pytest
 from coregex_tpu.dfa.countdfa import build_count_dfa
 from coregex_tpu.dfa.determinize import determinize
 from coregex_tpu.nfa.thompson import compile_nfa
-from coregex_tpu.ops.count_scan import CountScanner, plan_geometry
+from coregex_tpu.ops.count_scan import CountScanner
+from coregex_tpu.ops.transducer import plan_geometry
 from coregex_tpu.syntax.parser import parse
 
 PATTERNS = [
@@ -43,10 +44,15 @@ def _make_corpus(seed, n):
     return bytes(rng.choice(ALPHABET) for _ in range(n))
 
 
+def _small(n):
+    """Geometry with 32-byte lanes: many lanes even for tiny inputs."""
+    return plan_geometry(n, min_lane_bytes=32, warmup=16)
+
+
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_gather_impl_matches_oracle(pattern):
     cd = _build(pattern)
-    sc = CountScanner(cd, impl="gather")
+    sc = CountScanner(cd, impl="xla")
     rng = random.Random(42)
     for n in [1, 3, 17, 255, 256, 1000, 4096, 9999]:
         data = _make_corpus(rng.random(), n)
@@ -58,24 +64,22 @@ def test_gather_impl_matches_oracle(pattern):
 
 
 def test_many_lane_boundaries():
-    """Tiny tiles -> hundreds of lanes; stitching must stay exact."""
+    """Tiny lanes -> hundreds of lanes; stitching must stay exact."""
     cd = _build(r"\d+\.\d+\.\d+\.\d+")
-    sc = CountScanner(cd, impl="gather")
+    sc = CountScanner(cd, impl="xla")
     data = (b"ip 10.1.2.3 and 192.168.0.255 plus 1.2.3.4.5.6 " * 200)
     arr = np.frombuffer(data, dtype=np.uint8)
-    geometry = plan_geometry(len(arr), lc=128, tile_bytes=256)
-    got = sc.count(jnp.asarray(arr), geometry=geometry)
+    got = sc.count(jnp.asarray(arr), geometry=_small(len(arr)))
     assert got == cd.count_scan(arr)
 
 
 def test_matches_crossing_boundaries():
     """Long matches that straddle chunk edges (repair rounds > 0)."""
     cd = _build(r"a+b")
-    sc = CountScanner(cd, impl="gather")
+    sc = CountScanner(cd, impl="xla")
     data = b"a" * 5000 + b"b" + b"a" * 3000 + b"b" + b"c" * 100
     arr = np.frombuffer(data, dtype=np.uint8)
-    geometry = plan_geometry(len(arr), lc=128, tile_bytes=256)
-    got = sc.count(jnp.asarray(arr), geometry=geometry)
+    got = sc.count(jnp.asarray(arr), geometry=_small(len(arr)))
     # matches longer than a chunk defeat warmup; either exact or an
     # honest non-convergence (None)
     assert got is None or got == cd.count_scan(arr)
@@ -84,82 +88,37 @@ def test_matches_crossing_boundaries():
 def test_eoi_commit():
     """Match ending exactly at n (pending flag committed at EOI)."""
     cd = _build(r"\d+\.\d+\.\d+\.\d+")
-    sc = CountScanner(cd, impl="gather")
+    sc = CountScanner(cd, impl="xla")
     data = b"x" * 500 + b"10.0.0.1"
     arr = np.frombuffer(data, dtype=np.uint8)
-    got = sc.count(jnp.asarray(arr),
-                   geometry=plan_geometry(len(arr), lc=128))
+    got = sc.count(jnp.asarray(arr), geometry=_small(len(arr)))
     assert got == cd.count_scan(arr) == 1
 
 
-def test_pallas_interpret_matches_oracle():
-    # interpret mode is slow (~40s); one representative case keeps the
-    # Mosaic kernel's semantics covered on CPU, the TPU path is exercised
-    # by the bench and by COREGEX_TPU_COUNT_IMPL=pallas runs
-    cd = _build(r"[\w]+")
-    sc = CountScanner(cd, impl="pallas", interpret=True)
+@pytest.mark.parametrize("pattern", [r"[\w]+", r"a+b", r"\bword\b"])
+def test_pallas_interpret_matches_oracle(pattern, triton_interpret):
+    """The Triton kernel (interpret mode) gives the oracle's count."""
+    cd = _build(pattern)
+    sc = CountScanner(cd, impl="triton")
     data = _make_corpus(7, 2000)
     arr = np.frombuffer(data, dtype=np.uint8)
-    got = sc.count(jnp.asarray(arr),
-                   geometry=plan_geometry(len(arr), lc=128))
-    exp = cd.count_scan(arr)
-    assert got == exp
+    got = sc.count(jnp.asarray(arr), geometry=_small(len(arr)))
+    assert got == cd.count_scan(arr)
 
 
-class TestColdServe:
-    """Cold-compile mitigation (round-3 verdict item 7): first queries
-    on a new pattern shape are served by the compile-shared onehot path
-    while the select-tree kernel warms in the background; later queries
-    switch over."""
-
-    def _scanner(self, monkeypatch):
-        import coregex_tpu.ops.count_scan as cs
-        from coregex_tpu.dfa.countdfa import build_count_dfa
-        from coregex_tpu.dfa.determinize import determinize
-        from coregex_tpu.nfa.thompson import compile_nfa
-        from coregex_tpu.syntax.parser import parse
-        monkeypatch.setenv("COREGEX_TPU_COLD_SERVE", "1")
-        nfa = compile_nfa(parse(r"ab+c"), with_captures=False)
-        cd = build_count_dfa(
-            determinize(nfa, anchored=False, break_at_match=True))
-        sc = cs.CountScanner(cd)
-        sc.impl = "pallas"       # pretend the Mosaic path was selected
-        sc.cold_serve = True
-        return cs, sc
-
-    def test_switchover(self, monkeypatch):
-        import threading
-        import jax.numpy as jnp
-        import numpy as np
-        cs, sc = self._scanner(monkeypatch)
-        used = []
-        gate = threading.Event()
-
-        def fake_count_once(data_dev, geometry, impl):
-            used.append(impl)
-            if impl == "pallas" and not gate.is_set():
-                gate.wait(timeout=10)  # simulate the slow remote compile
-            return sc._count_once_real(data_dev, geometry, "gather")
-
-        sc._count_once_real = cs.CountScanner._count_once.__get__(sc)
-        monkeypatch.setattr(sc, "_count_once", fake_count_once)
-        data = jnp.asarray(
-            np.frombuffer(b"xx abc abbbc " * 500, dtype=np.uint8))
-        c1 = sc.count(data)
-        # the serving call is onehot; the background thread's pallas
-        # warm call may interleave before or after it
-        assert "onehot" in used[:2]
-        assert c1 == sc.cd.count_scan(np.asarray(data))
-        gate.set()                            # background compile lands
-        sc._warm_thread.join(timeout=10)
-        assert sc._warm_done
-        c2 = sc.count(data)
-        assert used[-1] == "pallas"           # switched over
-        assert c2 == c1
-
-    def test_disable_env(self, monkeypatch):
-        cs, sc = self._scanner(monkeypatch)
-        monkeypatch.setenv("COREGEX_TPU_COLD_SERVE", "0")
-        from coregex_tpu.ops.count_scan import CountScanner
-        sc2 = CountScanner(sc.cd, impl="gather")
-        assert not sc2.cold_serve  # non-pallas impls never cold-serve
+def test_count_from_chains_segments():
+    """count_from with the exit state carried over segments is the
+    sequential scan (the one-card reference of the sharded count)."""
+    import jax
+    from coregex_tpu.dfa.dense import CTX_SOT
+    cd = _build(r"\d+\.\d+")
+    sc = CountScanner(cd, impl="xla")
+    data = np.frombuffer(_make_corpus(3, 3000), dtype=np.uint8)
+    s, total = int(cd.starts[CTX_SOT]), 0
+    for lo in range(0, 3000, 700):
+        cnt, s, conv = jax.device_get(
+            sc.count_from(jnp.asarray(data[lo:lo + 700]), s))
+        assert bool(conv)
+        total, s = total + int(cnt), int(s)
+    total += int(cd.eoi_commits[s, CTX_SOT])
+    assert total == cd.count_scan(data)

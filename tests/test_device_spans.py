@@ -1,5 +1,5 @@
 """Device-resident span assembly (find_all_spans_device): aligned
-start/end mask pairs + Mosaic compaction, validated against the host
+start/end mask pairs + stream compaction, validated against the host
 engine's exact Go walk."""
 
 import sys

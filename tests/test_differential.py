@@ -1,6 +1,6 @@
 """Differential conformance: engine vs Python-re oracle with Go semantics.
 
-The TPU-build analogue of the reference's stdlib_compat_test.go +
+The accelerator-build analogue of the reference's stdlib_compat_test.go +
 fuzz_stdlib_test.go corpora (SURVEY.md §4.1-4.2): every pattern/text pair is
 checked for identical spans across find / find_all / submatch / split.
 """
@@ -13,7 +13,7 @@ from helpers import (compile_oracle, go_all_matches, go_split,
                      oracle_groups, oracle_search)
 
 # (pattern, [texts]) — pattern corpus modeled on the reference's fuzz seeds
-# (fuzz_stdlib_test.go:7-60) plus TPU-build edge cases.
+# (fuzz_stdlib_test.go:7-60) plus accelerator-build edge cases.
 PATTERNS = [
     r"abc",
     r"a",

@@ -1,5 +1,5 @@
-"""FlagResetScanner: flag-word emission vs the round-4 ResetScanner
-and between the Mosaic (interpret) and gather implementations."""
+"""FlagResetScanner: flag-word emission vs the round-4 ResetScanner,
+through the plain XLA scan and the Triton kernel (interpret mode)."""
 
 import numpy as np
 import pytest
@@ -51,8 +51,10 @@ CASES = [
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("impl", ["gather", "pallas"])
-def test_flag_scan_matches_reset_scanner(case, impl):
+@pytest.mark.parametrize("impl", ["xla", "triton"])
+def test_flag_scan_matches_reset_scanner(case, impl, request):
+    if impl == "triton":
+        request.getfixturevalue("triton_interpret")
     pattern, corpus, _, rctx = case
     # resets right after each lit occurrence (the INNER rmask shape)
     eng = Engine.compile(pattern)
@@ -68,8 +70,7 @@ def test_flag_scan_matches_reset_scanner(case, impl):
     be, dd, dev, rmask, n = _mk(pattern, corpus, pos, rctx)
     exp_words, conv_e, interf_e = _expected_words(be, dd, dev, rmask, n)
     fsc = FlagResetScanner(dd, rctx, impl=impl)
-    fw, interf, conv, _h = fsc.scan_words(dev, rmask,
-                                      interpret=(impl == "pallas"))
+    fw, interf, conv, _h = fsc.scan_words(dev, rmask)
     fw = np.asarray(jax.device_get(fw)).astype(np.uint32).astype(
         np.int64)
     assert bool(jax.device_get(conv))
@@ -94,7 +95,7 @@ def test_flag_scan_interference_detected():
     dev = jnp.asarray(np.frombuffer(corpus, dtype=np.uint8))
     rmask = np.zeros(n, dtype=bool)
     rmask[pos] = True
-    fsc = FlagResetScanner(dd, CTX_OTHER, impl="gather")
+    fsc = FlagResetScanner(dd, CTX_OTHER, impl="xla")
     fw, interf, conv, _h = fsc.scan_words(dev, jnp.asarray(rmask))
     sc = ResetScanner(dd)
     _, _, _, interf_e, _ = sc.scan_device(dev, jnp.asarray(rmask))

@@ -107,6 +107,8 @@ class TestFindFirstDevice:
 
 class TestOnehotCountImpl:
     def test_onehot_matches_host(self):
+        """The count transducer (the impl that replaced the one-hot
+        step) against the host walk."""
         import jax.numpy as jnp
 
         from coregex_tpu.dfa.countdfa import build_count_dfa
@@ -121,7 +123,7 @@ class TestOnehotCountImpl:
         nfa = compile_nfa(e.parsed, with_captures=False)
         cd = build_count_dfa(
             determinize(nfa, anchored=False, break_at_match=True))
-        sc = CountScanner(cd, impl="onehot")
+        sc = CountScanner(cd)
         assert sc.count(jnp.asarray(arr)) == host
 
 

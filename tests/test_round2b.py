@@ -117,9 +117,9 @@ class TestPaddingExactness:
         assert bool(re.search(rb"[ax]*[\x00b]+", t2))
 
     def test_size_bucket_geometry_reuse(self):
-        from coregex_tpu.ops.count_scan import plan_geometry, size_bucket
-        # sizes within 12.5% share one geometry
-        assert plan_geometry(1_000_000) == plan_geometry(1_060_000)
+        from coregex_tpu.ops.transducer import plan_geometry, size_bucket
+        # sizes in one 1/8-power-of-two bucket share one geometry
+        assert plan_geometry(1_000_000) == plan_geometry(1_040_000)
         assert size_bucket(1 << 20) == 1 << 20
         for n in (1, 513, 4097, 10**6, 10**9):
             assert size_bucket(n) >= n

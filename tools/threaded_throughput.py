@@ -7,7 +7,7 @@ server drives independent engines.  This measures aggregate count()
 throughput for 1..8 threads, one engine + corpus slice per thread,
 repeated enough to amortize the sync floor.
 
-Run on the TPU host: `python tools/threaded_throughput.py`
+Run on the GPU host: `python tools/threaded_throughput.py`
 (env COREGEX_TPU_TT_MB to size the per-thread corpus, default 192).
 """
 
